@@ -1,0 +1,64 @@
+"""Import contract of the PyTorch port: it (and chip_smoke.py) imports
+neither JAX nor the JAX package, checked in a fresh interpreter (this test
+process has JAX loaded by conftest) and by reading the sources."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "laughter_detection_icsi_tpu_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, runpy, sys
+import laughter_detection_icsi_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path("chip_smoke.py", run_name="chip_smoke_probe")  # defines, runs nothing
+from laughter_detection_icsi_tpu_torch.cli import segment_laughter
+try:
+    segment_laughter.main(["--help"])
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "laughter_detection_icsi_tpu")
+             or m.startswith(("jax.", "laughter_detection_icsi_tpu.")))
+print("MODULES", len(names))
+print("BAD", bad)
+"""
+
+
+def test_port_never_imports_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
+        text=True, timeout=240,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    n = int(re.search(r"MODULES (\d+)", out.stdout).group(1))
+    assert n >= 17, out.stdout  # every module of the slice was imported
+    assert "--device" in out.stdout  # the CLI's --help ran
+
+
+_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|laughter_detection_icsi_tpu)\b"
+    r"|import_module\(\s*['\"](?:jax|laughter_detection_icsi_tpu)\b",
+    re.MULTILINE,
+)
+
+
+def test_sources_name_no_jax_import():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 17
+    offenders = [str(f.relative_to(REPO)) for f in files if _IMPORT.search(f.read_text())]
+    assert offenders == []
+
+
+def test_pattern_catches_what_it_should():
+    assert _IMPORT.search("import jax.numpy as jnp")
+    assert _IMPORT.search("    from laughter_detection_icsi_tpu.ops import fbank")
+    assert _IMPORT.search("importlib.import_module('jax')")
+    assert not _IMPORT.search("from laughter_detection_icsi_tpu_torch.ops import fbank")
+    assert not _IMPORT.search("import jaxtyping")
