@@ -9,11 +9,17 @@ toolkit (nvcc):
 Phases (any failure exits non-zero and prints no result):
 
 1. device — the card's name and power limit, as nvidia-smi reports them;
-2. build  — compile the fbank kernel from csrc/fbank.cu (timed);
+2. build  — compile the fbank kernel from csrc/fbank.cu (timed); ptxas's
+   register/spill report (any spill fails) and the count of tensor-core
+   ``HMMA`` instructions in the kernel's SASS (none fails); the frames a
+   block computes, as the library reports them;
 3. kernel — ``fbank_cuda`` against its plain PyTorch version on the card
-   (atol 2e-4, rtol 1e-4) at the listed shapes, a [3, n] batch equal to
-   each channel alone, and the kernel's, the plain version's and one
-   cuBLAS matmul's times at the main-path bucket;
+   (atol 2e-4, rtol 1e-4) at the listed shapes (int16-scaled audio, a
+   silent stretch at the energy floor, 3 whole blocks of frames and one
+   frame more among them), a [3, n] batch equal to each channel alone,
+   and the kernel's, the plain version's and one cuBLAS matmul's times at
+   the main-path bucket beside the 3xTF32 tensor-core bound (the JSON
+   line's ``bound_ms``) and the fp32 CUDA-core one (printed only);
 4. main path — full-width ``resnet_base`` ResNetBigger (numpy-seeded
    weights in a ``.ckpt.npz``) segments ~150 s of synthetic int16 audio
    through the port's CLI on ``cuda``; the kernel must launch once per
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -44,12 +51,13 @@ TOL = dict(atol=2e-4, rtol=1e-4)  # tests/test_fbank_pallas.py's feature toleran
 SECONDS = 150  # main-path audio: three 6144-frame buckets, the last partial
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
-# float32 outside the tensor cores, and memory bandwidth.
-PEAKS = (  # (name fragment, FP32 FLOP/s, bytes/s); first match wins
-    ("H100 PCIe", 51.2e12, 2.0e12),
-    ("H100 NVL", 60.0e12, 3.9e12),
-    ("H200", 67.0e12, 4.8e12),
-    ("H100", 67.0e12, 3.35e12),
+# float32 outside the tensor cores, TF32 on the tensor cores (half the
+# sheets' with-sparsity figure), and memory bandwidth.
+PEAKS = (  # (name fragment, FP32 FLOP/s, TF32 FLOP/s, bytes/s); first match wins
+    ("H100 PCIe", 51.2e12, 378e12, 2.0e12),
+    ("H100 NVL", 60.0e12, 417.5e12, 3.9e12),
+    ("H200", 67.0e12, 495e12, 4.8e12),
+    ("H100", 67.0e12, 495e12, 3.35e12),
 )
 
 
@@ -137,11 +145,13 @@ def phase_device():
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     kind = torch.cuda.get_device_name(0)
-    peak = next(((f, b) for frag, f, b in PEAKS if frag in kind), None)
+    peak = next((dict(fp32=f, tf32=tf, bytes=b) for frag, f, tf, b in PEAKS if frag in kind),
+                None)
     check(peak is not None, f"no published peaks on file for {kind!r}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}, "
           f"{torch.cuda.device_count()} device(s); peaks used: "
-          f"{peak[0] / 1e12:g} TFLOP/s fp32, {peak[1] / 1e12:g} TB/s")
+          f"{peak['fp32'] / 1e12:g} TFLOP/s fp32, {peak['tf32'] / 1e12:g} TFLOP/s TF32 "
+          f"tensor cores, {peak['bytes'] / 1e12:g} TB/s")
     return card, kind, peak
 
 
@@ -154,13 +164,49 @@ def phase_build():
     seconds = time.perf_counter() - t0
     print(f"built {lib.relative_to(REPO)} in {seconds:.2f} s")
     log = lib.with_suffix(".log")
-    for line in log.read_text().splitlines() if log.is_file() else []:
+    check(log.is_file(), f"no nvcc report beside {lib.name}")
+    spills = []
+    for line in log.read_text().splitlines():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    return seconds
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills.append(int(m.group(1)) + int(m.group(2)))
+    check(spills, "ptxas printed no spill report")
+    check(not any(spills), "the fbank kernel spills registers")
+    ops = sass_opcodes(lib, "fbank_kernel")
+    hmma = sum(op.startswith("HMMA") for op in ops)
+    print(f"  SASS: {hmma} HMMA (tensor-core) of {len(ops)} instructions in fbank_kernel "
+          f"(dump: {lib.with_suffix('.sass').relative_to(REPO)})")
+    check(hmma > 0, "no HMMA instruction in fbank_kernel: the DFT is not on the tensor cores")
+    block_frames = fbank_cuda.frames_per_block()
+    print(f"  the kernel computes {block_frames} frames a block")
+    return block_frames
 
 
-def phase_kernel(card, peak):
+def sass_opcodes(lib: Path, function: str) -> list:
+    """The opcodes, in order, that ``cuobjdump -sass`` shows in the kernels
+    of ``lib`` whose name holds ``function``.  The whole dump is kept beside
+    the library as ``.sass``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    check(CUDA_HOME is not None, "no CUDA toolkit (cuobjdump)")
+    sass = subprocess.run([str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
+    lib.with_suffix(".sass").write_text(sass.stdout)
+    ops, inside = [], False
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            inside = function in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if inside and m:
+            ops.append(m.group(1))
+    return ops
+
+
+def phase_kernel(card, peak, block_frames: int):
     import torch
 
     from laughter_detection_icsi_tpu_torch import host_prep
@@ -170,23 +216,32 @@ def phase_kernel(card, peak):
     from laughter_detection_icsi_tpu_torch.ops import fbank_cuda
 
     rng = np.random.default_rng(0)
+    noise = lambda shape: (rng.standard_normal(shape) * 0.1).astype(np.float32)
     snip = host_prep.snip_cfg(FEAT)
     bucket_n = host_prep.bucket_wave_len(InferenceSettings())
     check(bucket_n == 999_120, f"bucket length {bucket_n}")
+    silent = noise(32000)
+    silent[6000:22000] = 0.0  # whole frames of silence: power at the floor
+    tile = block_frames * 3 * FEAT.frame_shift_samples  # 3 whole blocks of frames
     cases = [
-        ("n=16000", 16000, FEAT),
-        ("n=48777", 48777, FEAT),
-        ("n=399 (under one frame length)", 399, FEAT),
-        ("n=80 (under one frame length)", 80, FEAT),
-        ("multi-block, 549 frames", (2 * 256 + 37) * 160, FEAT),
-        ("batch [3, 16777]", (3, 16777), FEAT),
-        ("main-path bucket n=999120", bucket_n, snip),
+        ("n=16000", noise(16000), FEAT),
+        ("n=48777", noise(48777), FEAT),
+        ("n=399 (under one frame length)", noise(399), FEAT),
+        ("n=80 (under one frame length)", noise(80), FEAT),
+        ("multi-block, 549 frames", noise((2 * 256 + 37) * 160), FEAT),
+        ("batch [3, 16777]", noise((3, 16777)), FEAT),
+        ("int16-scaled, n=48777", speechlike(48777, seed=3) / np.float32(32768), FEAT),
+        ("silent stretch, n=32000", silent, FEAT),
+        (f"tile boundary, {3 * block_frames} frames", noise(tile), FEAT),
+        (f"tile boundary, {3 * block_frames + 1} frames",
+         noise(tile + FEAT.frame_shift_samples), FEAT),
+        ("main-path bucket n=999120", noise(bucket_n), snip),
     ]
     max_err = 0.0
     with strict_fp32():
         print(f"precision in force: {precision_setting()}")
-        for label, shape, cfg in cases:
-            x = torch.from_numpy((rng.standard_normal(shape) * 0.1).astype(np.float32)).cuda()
+        for label, wave, cfg in cases:
+            x = torch.from_numpy(wave).cuda()
             got = fbank_cuda.fbank_cuda(x, cfg)
             want = fbank_ops.fbank(x, cfg)
             torch.cuda.synchronize()
@@ -198,12 +253,17 @@ def phase_kernel(card, peak):
             err = (got - want).abs().max().item()
             max_err = max(max_err, err)
             print(f"  {label}: frames {got.shape[-2]}, max |kernel - plain| = {err:.3e}")
+            if label.startswith("silent"):
+                floor = torch.full_like(got, math.log(cfg.energy_floor))
+                at_floor = int(torch.isclose(got, floor, rtol=0, atol=1e-5).sum().item())
+                check(at_floor > 0, f"{label}: no feature at the energy floor")
+                print(f"  {label}: {at_floor} features at log(energy_floor)")
             if x.ndim == 2:
                 for c in range(x.shape[0]):
                     check(torch.equal(got[c], fbank_cuda.fbank_cuda(x[c].contiguous(), cfg)),
                           f"{label}: channel {c} differs from its own run")
                 print("  batch rows equal each channel run alone (bit for bit)")
-            if shape == bucket_n:
+            if cfg is snip:
                 bucket_x = x
 
         # Times at the main-path bucket.
@@ -217,24 +277,31 @@ def phase_kernel(card, peak):
         dft = basis[:flen].contiguous()
         library_ms = cuda_ms(lambda: torch.matmul(frames, dft))
     mel_nnz = int((mel_range[:, 1] - mel_range[:, 0]).sum().item())
-    flops = 2 * t * flen * dft.shape[1] + 2 * t * mel_nnz
+    dft_flops, mel_flops = 2 * t * flen * dft.shape[1], 2 * t * mel_nnz
     nbytes = 4 * (bucket_n + basis.numel() + mel.numel() + mel_range.numel()
                   + t * snip.num_filters)
-    bound_ops_ms, bound_bytes_ms = 1e3 * flops / peak[0], 1e3 * nbytes / peak[1]
+    bound_bytes_ms = 1e3 * nbytes / peak["bytes"]
+    # The kernel's DFT is three TF32 products a term (3xTF32) on the tensor
+    # cores; the mel sums run on the CUDA cores.  The fp32 bound is the
+    # same work as fp32 FMAs on the CUDA cores only.
+    bound_ops_ms = 1e3 * (3 * dft_flops / peak["tf32"] + mel_flops / peak["fp32"])
     bound_ms = max(bound_ops_ms, bound_bytes_ms)
-    print(f"fbank at the bucket ({t} frames; {flops / 1e9:.3f} GFLOP, "
+    bound_by = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
+    bound_fp32_ms = max(1e3 * (dft_flops + mel_flops) / peak["fp32"], bound_bytes_ms)
+    print(f"fbank at the bucket ({t} frames; DFT {dft_flops / 1e9:.3f} GFLOP = "
+          f"{3 * dft_flops / 1e9:.3f} GFLOP in 3xTF32, mel {mel_flops / 1e9:.4f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB) on {card}:")
     print(f"  kernel {kernel_ms:.4f} ms | plain PyTorch {plain_ms:.4f} ms | "
-          f"cuBLAS fp32 matmul [{t},{flen}]x[{flen},{dft.shape[1]}] {library_ms:.4f} ms | "
-          f"bound {bound_ms:.4f} ms ({'operations' if bound_ops_ms >= bound_bytes_ms else 'bytes'}; "
-          f"{100 * bound_ms / kernel_ms:.1f}% of it reached)")
+          f"cuBLAS fp32 matmul [{t},{flen}]x[{flen},{dft.shape[1]}] {library_ms:.4f} ms")
+    print(f"  3xTF32 tensor-core bound {bound_ms:.4f} ms ({bound_by}; "
+          f"{100 * bound_ms / kernel_ms:.1f}% of it reached) | fp32 CUDA-core bound "
+          f"{bound_fp32_ms:.4f} ms ({100 * bound_fp32_ms / kernel_ms:.1f}% of it reached)")
     return dict(
         name="fbank", route="cuda",
         source="laughter_detection_icsi_tpu_torch/csrc/fbank.cu",
         replaces="laughter_detection_icsi_tpu/ops/fbank_pallas.py:86",
         max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
-        library_ms=library_ms,
+        bound_by=bound_by, library_ms=library_ms,
     )
 
 
@@ -412,9 +479,9 @@ def main() -> int:
         print("== 1. device ==")
         card, kind, peak = phase_device()
         print("== 2. build ==")
-        phase_build()
+        block_frames = phase_build()
         print("== 3. fbank kernel vs its plain version ==")
-        entry = phase_kernel(card, peak)
+        entry = phase_kernel(card, peak, block_frames)
         print("== 4. main path ==")
         launches = phase_main_path(card, work)
     except Exception as e:  # any failed phase fails the run

@@ -41,9 +41,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 #: Compile-time shape of the kernel (csrc/fbank.cu): 256 DFT bins (a
-#: 512-point FFT) and 8-row basis tiles.
+#: 512-point FFT), 16-row basis tiles (``fbank_launch`` refuses a basis
+#: depth off this multiple).
 N_BINS = 256
-TILE_K = 8
+TILE_K = 16
 
 
 def _nvcc() -> str:
@@ -91,21 +92,34 @@ def _library() -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.fbank_launch.argtypes = [p, p, p, p, p, i, ll, i, i, i, i, f, p]
     lib.fbank_launch.restype = ctypes.c_int
+    lib.fbank_frames_per_block.argtypes = []
+    lib.fbank_frames_per_block.restype = ctypes.c_int
     return lib
+
+
+def frames_per_block() -> int:
+    """Frames one block of the kernel computes, as the built library
+    reports it (builds the kernel on first use)."""
+    return _library().fbank_frames_per_block()
 
 
 @functools.lru_cache(maxsize=16)
 def kernel_constants(cfg: FeatConfig, device: torch.device):
     """(basis [kpad, 512], mel [256, n_mels], mel_range [n_mels, 2]) on
-    ``device``: the preprocessing-folded cos|sin bases with the Nyquist bin
-    dropped and zero rows up to a multiple of TILE_K, the mel bank without
-    its (all-zero) Nyquist row, and each filter's nonzero bin range."""
+    ``device``: the preprocessing-folded cos and sin bases with the Nyquist
+    bin dropped and their n8-tiles interleaved (columns 16j..16j+7 are cos
+    bins 8j..8j+7, columns 16j+8..16j+15 sin bins 8j..8j+7, so re and im of
+    a bin land in the same lane of the kernel's mma fragments), one float32
+    copy (the kernel splits it into tf32 hi and lo in registers), zero rows
+    up to a multiple of TILE_K; the mel bank without its (all-zero) Nyquist
+    row, and each filter's nonzero bin range."""
     flen = cfg.frame_length_samples
     kpad = -(-flen // TILE_K) * TILE_K
     cos_eff, sin_eff = fbank_ops._effective_bases(cfg)
     basis = np.zeros((kpad, 2 * N_BINS), dtype=np.float32)
-    basis[:flen, :N_BINS] = cos_eff[:, :N_BINS]
-    basis[:flen, N_BINS:] = sin_eff[:, :N_BINS]
+    tiles = basis[:flen].reshape(flen, N_BINS // 8, 2, 8)  # [k, bin group, cos|sin, 8]
+    tiles[:, :, 0] = cos_eff[:, :N_BINS].reshape(flen, N_BINS // 8, 8)
+    tiles[:, :, 1] = sin_eff[:, :N_BINS].reshape(flen, N_BINS // 8, 8)
     mel = np.ascontiguousarray(fbank_ops._mel_banks(cfg)[:N_BINS])
     mel_range = np.zeros((mel.shape[1], 2), dtype=np.int32)
     for m in range(mel.shape[1]):
@@ -119,7 +133,9 @@ def kernel_constants(cfg: FeatConfig, device: torch.device):
 def check_config(cfg: FeatConfig) -> None:
     """Raise on a configuration the kernel does not take: dither, a frame
     geometry outside 2*shift < frame_length <= 3*shift (the TPU kernel's
-    limits), or another DFT size than its fixed 256 bins."""
+    limits), a shift that is not a multiple of 8 (an 8-deep k-step must not
+    cross a row of the kernel's staged wave tile), or another DFT size than
+    its fixed 256 bins."""
     if cfg.dither:
         raise NotImplementedError(
             "dither != 0 is not implemented (features are deterministic)"
@@ -130,6 +146,11 @@ def check_config(cfg: FeatConfig) -> None:
         raise NotImplementedError(
             "fbank_cuda assumes 2*shift < frame_length <= 3*shift "
             f"(got shift={shift}, frame_length={flen})"
+        )
+    if shift % 8:
+        raise NotImplementedError(
+            f"fbank_cuda needs a frame shift that is a multiple of 8 samples "
+            f"(got {shift}); use ops.fbank"
         )
     if cfg.fft_size // 2 != N_BINS:
         raise NotImplementedError(

@@ -6,6 +6,8 @@ machine without them:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -43,6 +45,45 @@ def test_kernel_matches_plain(card, shape):
     if x.ndim == 2:  # batch rows are computed exactly as each row alone
         for c in range(x.shape[0]):
             assert torch.equal(got[c], fbank_cuda.fbank_cuda(x[c].contiguous(), FEAT))
+
+
+def _edge_wave(kind):
+    if kind == "int16-scaled":
+        pcm = np.clip(_wave(48777, seed=1) * 3 * 32768, -32768, 32767).astype(np.int16)
+        return pcm / np.float32(32768)
+    if kind == "silent stretch":
+        w = _wave(32000, seed=2)
+        w[6000:22000] = 0.0  # whole frames of silence: power at the floor
+        return w
+    frames = 3 * fbank_cuda.frames_per_block() + (kind == "48k+1 frames")
+    return _wave(frames * FEAT.frame_shift_samples, seed=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int16-scaled", "silent stretch", "48k frames", "48k+1 frames"])
+def test_kernel_matches_plain_on_edge_inputs(card, kind):
+    x = torch.from_numpy(_edge_wave(kind)).to(card)
+    with inference.strict_fp32():
+        got = fbank_cuda.fbank_cuda(x, FEAT)
+        want = tfb.fbank(x, FEAT)
+    torch.testing.assert_close(got, want, **TOL)
+    if kind.startswith("48k"):
+        assert got.shape[0] % fbank_cuda.frames_per_block() == (kind == "48k+1 frames")
+    if kind == "silent stretch":
+        floor = torch.full_like(got, float(np.log(FEAT.energy_floor)))
+        assert torch.isclose(got, floor, rtol=0, atol=1e-5).any()
+
+
+@pytest.mark.cuda
+def test_kernel_other_frame_geometry(card):
+    # 21 ms frames (336 samples): another basis depth and wave-tile height.
+    cfg = dataclasses.replace(FEAT, frame_length=0.021)
+    fbank_cuda.check_config(cfg)
+    x = torch.from_numpy(_wave(16123, seed=4)).to(card)
+    with inference.strict_fp32():
+        got = fbank_cuda.fbank_cuda(x, cfg)
+        want = tfb.fbank(x, cfg)
+    torch.testing.assert_close(got, want, **TOL)
 
 
 @pytest.mark.cuda

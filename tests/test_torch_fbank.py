@@ -134,8 +134,10 @@ def test_kernel_constants_layout():
     basis, mel, rng_ = fbank_cuda.kernel_constants(FEAT, torch.device("cpu"))
     cos_eff, sin_eff = tfb._effective_bases(FEAT)
     assert basis.shape == (400, 512) and basis.shape[0] % fbank_cuda.TILE_K == 0
-    np.testing.assert_array_equal(basis[:, :256].numpy(), cos_eff[:, :256])
-    np.testing.assert_array_equal(basis[:, 256:].numpy(), sin_eff[:, :256])
+    # n8-tiles interleaved: columns 16j..16j+7 cos, 16j+8..16j+15 sin of bins 8j..8j+7.
+    tiles = basis.numpy().reshape(400, 32, 2, 8)
+    np.testing.assert_array_equal(tiles[:, :, 0].reshape(400, 256), cos_eff[:, :256])
+    np.testing.assert_array_equal(tiles[:, :, 1].reshape(400, 256), sin_eff[:, :256])
     # Summing each filter over its nonzero range only is exact.
     mel = mel.numpy()
     for m, (lo, hi) in enumerate(rng_.numpy()):
