@@ -16,10 +16,12 @@ Phases (any failure exits non-zero and prints no result):
 3. kernel — ``fbank_cuda`` against its plain PyTorch version on the card
    (atol 2e-4, rtol 1e-4) at the listed shapes (int16-scaled audio, a
    silent stretch at the energy floor, 3 whole blocks of frames and one
-   frame more among them), a [3, n] batch equal to each channel alone,
-   and the kernel's, the plain version's and one cuBLAS matmul's times at
-   the main-path bucket beside the 3xTF32 tensor-core bound (the JSON
-   line's ``bound_ms``) and the fp32 CUDA-core one (printed only);
+   frame more among them), a [3, n] batch and a [4, bucket] multichannel
+   bucket batch equal to each channel alone, and fused_conv's whole-track
+   shape (18,432 frames for 150 s); the kernel's, the plain version's and
+   one cuBLAS matmul's times at the main-path bucket and at the whole
+   track, beside the 3xTF32 tensor-core bound (the JSON line's
+   ``bound_ms``, at the bucket) and the fp32 CUDA-core one (printed only);
 4. main path — full-width ``resnet_base`` ResNetBigger (numpy-seeded
    weights in a ``.ckpt.npz``) segments ~150 s of synthetic int16 audio
    through the port's CLI on ``cuda``; the kernel must launch once per
@@ -28,7 +30,28 @@ Phases (any failure exits non-zero and prints no result):
    probabilities; shared-stem and naive windows must agree within 1e-5;
    then the e2e time (best of 3 warm ``segment_file`` calls) and, from a
    torch.profiler trace of one more call, where its device time goes;
-5. the card, one JSON line of the kernels, then the result line.
+5. fused_conv — the same model and audio through the CLI with ``--mode
+   fused_conv``: one kernel launch for the file; finite probabilities in
+   [0, 1]; the card within 1e-4 of the port on the CPU (5 s clip); the
+   blocked track within 1e-5 of the whole track on the card; the TextGrid
+   reads back; e2e best of 3, peak device memory, the device breakdown;
+   then a one-hour track: its peak memory with the blocks dispatched in
+   groups, and the groups within 1e-5 of one batch of every block;
+6. streaming — the 150 s file replayed through the port's ``cli/serve.py``
+   (250 ms feeds): the saved probabilities equal the offline ones bit for
+   bit, the events equal the offline smoothing, the kernel launches once
+   per bucket plus the warm-up bucket; the time of the feed that
+   completes a bucket;
+7. multichannel — 4 channels of 150 s (one 777 samples shorter) through
+   ``ShardedPipeline``: each row within 1e-5 of the single-channel
+   pipeline, one launch per bucket batch, ``ShardedStreamingSession``
+   equal to the offline batch bit for bit, ``serve --channels 4`` over
+   stdin (20 s, a subprocess) emitting every channel's offline events;
+   audio-seconds per wall-second, peak memory, the device breakdown; the
+   peak memory of 9 channels of 20 s;
+8. the card, one JSON line of the kernels (the fbank kernel at the main
+   path's bucket, launches counted on phase 4's path), then the result
+   line.
 
 The script imports neither JAX nor the JAX package.
 """
@@ -211,7 +234,8 @@ def phase_kernel(card, peak, block_frames: int):
 
     from laughter_detection_icsi_tpu_torch import host_prep
     from laughter_detection_icsi_tpu_torch.config import FEAT
-    from laughter_detection_icsi_tpu_torch.inference import InferenceSettings, strict_fp32
+    from laughter_detection_icsi_tpu_torch.inference import (
+        InferenceSettings, strict_fp32, track_wave_len)
     from laughter_detection_icsi_tpu_torch.ops import fbank as fbank_ops
     from laughter_detection_icsi_tpu_torch.ops import fbank_cuda
 
@@ -220,6 +244,11 @@ def phase_kernel(card, peak, block_frames: int):
     snip = host_prep.snip_cfg(FEAT)
     bucket_n = host_prep.bucket_wave_len(InferenceSettings())
     check(bucket_n == 999_120, f"bucket length {bucket_n}")
+    # fused_conv's whole track for SECONDS of audio: the frame count rounded
+    # up to a multiple of the 6144-frame bucket, in one buffer.
+    track_frames = -(-host_prep.num_frames(16000 * SECONDS) // 6144) * 6144
+    track_n = track_wave_len(track_frames)
+    check((track_frames, track_n) == (18_432, 2_949_360), f"whole track {track_frames}, {track_n}")
     silent = noise(32000)
     silent[6000:22000] = 0.0  # whole frames of silence: power at the floor
     tile = block_frames * 3 * FEAT.frame_shift_samples  # 3 whole blocks of frames
@@ -236,8 +265,14 @@ def phase_kernel(card, peak, block_frames: int):
         (f"tile boundary, {3 * block_frames + 1} frames",
          noise(tile + FEAT.frame_shift_samples), FEAT),
         ("main-path bucket n=999120", noise(bucket_n), snip),
+        ("multichannel bucket batch [4, 999120]", noise((4, bucket_n)), snip),
+        (f"fused_conv whole track, {track_frames} frames n={track_n}",
+         speechlike(track_n, seed=4) / np.float32(32768), snip),
     ]
+    timed = {"main-path bucket n=999120": "the bucket",
+             f"fused_conv whole track, {track_frames} frames n={track_n}": "the whole track"}
     max_err = 0.0
+    times = {}
     with strict_fp32():
         print(f"precision in force: {precision_setting()}")
         for label, wave, cfg in cases:
@@ -263,23 +298,39 @@ def phase_kernel(card, peak, block_frames: int):
                     check(torch.equal(got[c], fbank_cuda.fbank_cuda(x[c].contiguous(), cfg)),
                           f"{label}: channel {c} differs from its own run")
                 print("  batch rows equal each channel run alone (bit for bit)")
-            if cfg is snip:
-                bucket_x = x
+            if label in timed:
+                times[timed[label]] = time_fbank(x, cfg, peak, card, timed[label])
+    return dict(
+        name="fbank", route="cuda",
+        source="laughter_detection_icsi_tpu_torch/csrc/fbank.cu",
+        replaces="laughter_detection_icsi_tpu/ops/fbank_pallas.py:86",
+        max_abs_err=max_err, **times["the bucket"],
+    )
 
-        # Times at the main-path bucket.
-        x = bucket_x
-        t = host_prep.num_frames(bucket_n, snip)
-        flen = snip.frame_length_samples
-        basis, mel, mel_range = fbank_cuda.kernel_constants(snip, x.device)
-        kernel_ms = cuda_ms(lambda: fbank_cuda.fbank_cuda(x, snip))
-        plain_ms = cuda_ms(lambda: fbank_ops.fbank(x, snip))
-        frames = x.as_strided((t, flen), (snip.frame_shift_samples, 1)).contiguous()
-        dft = basis[:flen].contiguous()
-        library_ms = cuda_ms(lambda: torch.matmul(frames, dft))
+
+def time_fbank(x, cfg, peak, card, where: str) -> dict:
+    """The kernel's, the plain version's and one cuBLAS fp32 matmul's
+    (frames x the DFT basis, ~95% of the kernel's FLOPs) device times on the
+    1-D wave ``x``, beside the 3xTF32 tensor-core bound and the fp32
+    CUDA-core one; printed, and returned for the JSON kernels line."""
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep
+    from laughter_detection_icsi_tpu_torch.ops import fbank as fbank_ops
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda
+
+    n = x.shape[-1]
+    t = host_prep.num_frames(n, cfg)
+    flen = cfg.frame_length_samples
+    basis, mel, mel_range = fbank_cuda.kernel_constants(cfg, x.device)
+    kernel_ms = cuda_ms(lambda: fbank_cuda.fbank_cuda(x, cfg))
+    plain_ms = cuda_ms(lambda: fbank_ops.fbank(x, cfg))
+    frames = x.as_strided((t, flen), (cfg.frame_shift_samples, 1)).contiguous()
+    dft = basis[:flen].contiguous()
+    library_ms = cuda_ms(lambda: torch.matmul(frames, dft))
     mel_nnz = int((mel_range[:, 1] - mel_range[:, 0]).sum().item())
     dft_flops, mel_flops = 2 * t * flen * dft.shape[1], 2 * t * mel_nnz
-    nbytes = 4 * (bucket_n + basis.numel() + mel.numel() + mel_range.numel()
-                  + t * snip.num_filters)
+    nbytes = 4 * (n + basis.numel() + mel.numel() + mel_range.numel() + t * cfg.num_filters)
     bound_bytes_ms = 1e3 * nbytes / peak["bytes"]
     # The kernel's DFT is three TF32 products a term (3xTF32) on the tensor
     # cores; the mel sums run on the CUDA cores.  The fp32 bound is the
@@ -288,7 +339,7 @@ def phase_kernel(card, peak, block_frames: int):
     bound_ms = max(bound_ops_ms, bound_bytes_ms)
     bound_by = "operations" if bound_ops_ms >= bound_bytes_ms else "bytes"
     bound_fp32_ms = max(1e3 * (dft_flops + mel_flops) / peak["fp32"], bound_bytes_ms)
-    print(f"fbank at the bucket ({t} frames; DFT {dft_flops / 1e9:.3f} GFLOP = "
+    print(f"fbank at {where} ({t} frames; DFT {dft_flops / 1e9:.3f} GFLOP = "
           f"{3 * dft_flops / 1e9:.3f} GFLOP in 3xTF32, mel {mel_flops / 1e9:.4f} GFLOP, "
           f"{nbytes / 1e6:.2f} MB) on {card}:")
     print(f"  kernel {kernel_ms:.4f} ms | plain PyTorch {plain_ms:.4f} ms | "
@@ -296,13 +347,8 @@ def phase_kernel(card, peak, block_frames: int):
     print(f"  3xTF32 tensor-core bound {bound_ms:.4f} ms ({bound_by}; "
           f"{100 * bound_ms / kernel_ms:.1f}% of it reached) | fp32 CUDA-core bound "
           f"{bound_fp32_ms:.4f} ms ({100 * bound_fp32_ms / kernel_ms:.1f}% of it reached)")
-    return dict(
-        name="fbank", route="cuda",
-        source="laughter_detection_icsi_tpu_torch/csrc/fbank.cu",
-        replaces="laughter_detection_icsi_tpu/ops/fbank_pallas.py:86",
-        max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=library_ms,
-    )
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 def precision_setting() -> str:
@@ -310,6 +356,23 @@ def precision_setting() -> str:
 
     return (f"cudnn.conv.fp32_precision={torch.backends.cudnn.conv.fp32_precision}, "
             f"cuda.matmul.fp32_precision={torch.backends.cuda.matmul.fp32_precision}")
+
+
+def midway_threshold(probs: np.ndarray) -> float:
+    """A threshold midway between neighbouring probabilities near the
+    median, so that no rerun's rounding can flip a frame across it."""
+    srt = np.sort(probs.astype(np.float64))
+    i = len(srt) // 2
+    j = i + int(np.argmax(np.diff(srt[i : i + 50])))
+    thr = round(float(srt[j] + srt[j + 1]) / 2, 6)
+    check(np.min(np.abs(srt - thr)) > 1e-6, f"threshold {thr} sits on a probability")
+    return thr
+
+
+def check_probs(probs: np.ndarray, shape, what: str) -> None:
+    check(probs.shape == shape, f"{what}: probs shape {probs.shape} != {shape}")
+    check(bool(np.isfinite(probs).all()), f"{what}: non-finite probabilities")
+    check(bool((probs >= 0).all() and (probs <= 1).all()), f"{what}: probabilities outside [0, 1]")
 
 
 def phase_main_path(card, work: Path):
@@ -346,16 +409,8 @@ def phase_main_path(card, work: Path):
 
     pipe = inference.LaughterPipeline(model, settings=settings, device="cuda")
     probs, duration = pipe.probs_for_file(str(wav))  # also warms cuDNN up
-    check(probs.shape == (n_frames,), f"probs shape {probs.shape}")
-    check(bool(np.isfinite(probs).all()), "non-finite probabilities")
-    check(bool((probs >= 0).all() and (probs <= 1).all()), "probabilities outside [0, 1]")
-    # A threshold midway between neighbouring probabilities near the median,
-    # so no rerun's rounding can flip a frame across it.
-    srt = np.sort(probs.astype(np.float64))
-    i = len(srt) // 2
-    j = i + int(np.argmax(np.diff(srt[i : i + 50])))
-    thr = round(float(srt[j] + srt[j + 1]) / 2, 6)
-    check(np.min(np.abs(srt - thr)) > 1e-6, f"threshold {thr} sits on a probability")
+    check_probs(probs, (n_frames,), "windows")
+    thr = midway_threshold(probs)
     print(f"probs: min {probs.min():.4f}, median {np.median(probs):.4f}, max {probs.max():.4f}")
 
     # The main path, through the CLI a user calls; kernel launches counted.
@@ -408,15 +463,289 @@ def phase_main_path(card, work: Path):
     # End to end, warm: file read -> probs -> smoothing, as segment_file times it.
     took = [pipe.segment_file(str(wav), [thr], [0.2])[1] for _ in range(3)]
     best = min(took)
+    torch.cuda.reset_peak_memory_stats()
+    pipe.segment_file(str(wav), [thr], [0.2])
+    peak = torch.cuda.max_memory_allocated()
     print(f"e2e segment_file on {card}: {SECONDS} s audio in "
           f"{', '.join(f'{s:.4f}' for s in took)} s -> {duration / best:.1f}x realtime "
-          f"(best of 3); CLI wall time incl. model load {cli_s:.3f} s")
-    device_breakdown(lambda: pipe.segment_file(str(wav), [thr], [0.2]), best,
+          f"(best of 3); CLI wall time incl. model load {cli_s:.3f} s; peak device memory "
+          f"{peak / 2**30:.3f} GiB")
+    device_breakdown("segment_file", lambda: pipe.segment_file(str(wav), [thr], [0.2]), best,
                      work / "segment_file.trace.json")
+    return dict(launches=launches, model=model, build_model=build_model, ckpt=ckpt, wav=wav,
+                pcm=pcm, probs=probs, thr=thr, pipe=pipe, n_buckets=n_buckets)
+
+
+def phase_fused_conv(card, work: Path, ctx: dict) -> int:
+    """mode='fused_conv' through the CLI; returns its kernel launches."""
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep, inference
+    from laughter_detection_icsi_tpu_torch.cli import segment_laughter as cli
+    from laughter_detection_icsi_tpu_torch.config import FEAT
+    from laughter_detection_icsi_tpu_torch.data import audio
+    from laughter_detection_icsi_tpu_torch.eval import textgrid
+    from laughter_detection_icsi_tpu_torch.models import fully_conv
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, smoothing
+
+    model, wav, pcm = ctx["model"], ctx["wav"], ctx["pcm"]
+    settings = inference.settings_from_flags(device="cuda", mode="fused_conv")
+    pipe = inference.LaughterPipeline(model, settings=settings, device="cuda")
+    probs, duration = pipe.probs_for_file(str(wav))  # also warms cuDNN up
+    check_probs(probs, ctx["probs"].shape, "fused_conv")
+    thr = midway_threshold(probs)
+    print(f"fused_conv probs: min {probs.min():.4f}, median {np.median(probs):.4f}, "
+          f"max {probs.max():.4f}; max |fused_conv - windows| = "
+          f"{np.abs(probs - ctx['probs']).max():.3f} (another model of the audio, not parity)")
+
+    out = work / "out_fused"
+    fbank_cuda.launches = 0
+    rc = cli.main([
+        "--model_path", ctx["ckpt"], "--input_audio_file", str(wav), "--output_dir", str(out),
+        "--thresholds", f"{thr}", "--min_lengths", "0.2", "--save_to_textgrid", "True",
+        "--save_to_audio_files", "False", "--mode", "fused_conv", "--device", "cuda",
+    ])
+    torch.cuda.synchronize()
+    launches = fbank_cuda.launches
+    check(rc == 0, f"CLI returned {rc}")
+    check(launches == 1, f"fused_conv: fbank kernel launched {launches} times for one file")
+    print(f"CLI run (--mode fused_conv): fbank kernel launched {launches} time for the file")
+    grid = out / f"t_{thr}" / "l_0.2" / "meeting.TextGrid"
+    want = smoothing.get_laughter_instances(probs, [thr], [0.2])[(thr, 0.2)]
+    check(len(want) > 0 and grid.is_file(), f"no instances or no TextGrid at {grid}")
+    got = textgrid.read_laughter_intervals(str(grid))
+    check(got == want, f"TextGrid intervals {got[:3]}... != smoothing {want[:3]}...")
+    print(f"TextGrid reads back: {len(got)} instances at threshold {thr}, min_length 0.2")
+
+    # The card against the port on the CPU, on a short clip, same settings.
+    clip = pcm[: 16000 * 5]
+    small = inference.InferenceSettings(bucket_frames=512, mode="fused_conv")
+    cpu_model = ctx["build_model"]()
+    cpu_model.load_state_dict(model.state_dict())
+    d_cpu = np.abs(
+        inference.LaughterPipeline(model, settings=small, device="cuda").probs_for_waveform(clip)
+        - inference.LaughterPipeline(cpu_model, settings=small, device="cpu").probs_for_waveform(clip)
+    ).max()
+    check(d_cpu <= 1e-4, f"fused_conv card vs CPU probs differ by {d_cpu:.3e} > 1e-4")
+    print(f"card vs CPU, 5 s clip: max |diff| = {d_cpu:.3e} (limit 1e-4)")
+
+    # The blocked track against the whole track, on the card (3,000 frames).
+    with torch.inference_mode(), inference.strict_fp32():
+        x = torch.from_numpy(pcm[: 16000 * 30]).cuda().float() / 32768.0
+        feats = fbank_cuda.fbank_cuda(x, FEAT)
+        d_blk = (fully_conv.fully_conv_probs_blocked(model, feats)
+                 - fully_conv.fully_conv_probs(model, feats)).abs().max().item()
+    check(d_blk <= 1e-5, f"blocked vs whole-track fully-conv differ by {d_blk:.3e} > 1e-5")
+    print(f"blocked vs whole track, {feats.shape[0]} frames: max |diff| = {d_blk:.3e} (limit 1e-5)")
+
+    run = lambda: pipe.segment_file(str(wav), [thr], [0.2])
+    took = [run()[1] for _ in range(3)]
+    best = min(took)
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"e2e segment_file (fused_conv) on {card}: {SECONDS} s audio in "
+          f"{', '.join(f'{s:.4f}' for s in took)} s -> {duration / best:.1f}x realtime "
+          f"(best of 3); peak device memory {peak / 2**30:.3f} GiB")
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host_prep.host_pad_waveform(audio.read_int16(str(wav))[0])
+        host.append(time.perf_counter() - t0)
+    print(f"  of which the host's file read + reflection pad: {1e3 * min(host):.2f} ms "
+          f"(host clock, best of 3)")
+    device_breakdown("segment_file (fused_conv)", run, best, work / "fused_conv.trace.json")
+
+    # A one-hour channel (the audio 24 times over): the blocks go through the
+    # stack fully_conv.MAX_BLOCKS at a time; held against one batch of all.
+    hour = np.tile(pcm, 3600 // SECONDS)
+    t_hour = host_prep.num_frames(len(hour))
+    took_h = []
+    for _ in range(2):  # the first call meets the group shapes cold
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p_hour = pipe.probs_for_waveform(hour)
+        took_h.append(time.perf_counter() - t0)
+    peak_hour = torch.cuda.max_memory_allocated()
+    check_probs(p_hour, (t_hour,), "fused_conv, one hour")
+    with torch.inference_mode(), inference.strict_fp32():
+        feats = fbank_cuda.fbank_cuda(torch.from_numpy(hour).cuda().float() / 32768.0, FEAT)
+        nb = -(-feats.shape[0] // 1024)
+        base = torch.cuda.memory_allocated()
+        peaks, out = [], []
+        for max_blocks in (fully_conv.MAX_BLOCKS, nb):
+            torch.cuda.reset_peak_memory_stats()
+            out.append(fully_conv.fully_conv_probs_blocked(model, feats, max_blocks=max_blocks))
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+        d_grp = (out[0] - out[1]).abs().max().item()
+    check(d_grp <= 1e-5, f"one hour: {fully_conv.MAX_BLOCKS}-block groups vs one batch of {nb} "
+                         f"differ by {d_grp:.3e} > 1e-5")
+    print(f"one hour ({t_hour} frames, {nb} blocks) on {card}: segment by probs_for_waveform in "
+          f"{', '.join(f'{s:.4f}' for s in took_h)} s -> {3600 / took_h[-1]:.1f}x realtime "
+          f"(warm call), peak device memory {peak_hour / 2**30:.3f} GiB")
+    print(f"  fully_conv_probs_blocked over its features: groups of {fully_conv.MAX_BLOCKS} "
+          f"blocks peak {peaks[0] / 2**30:.3f} GiB above the features, one batch of {nb} "
+          f"blocks {peaks[1] / 2**30:.3f} GiB; max |groups - one batch| = {d_grp:.3e} "
+          f"(limit 1e-5)")
     return launches
 
 
-def device_breakdown(fn, best_s: float, trace_path: Path) -> None:
+def phase_streaming(card, work: Path, ctx: dict) -> int:
+    """The 150 s file replayed through cli/serve.py; returns its kernel
+    launches (warm-up included)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep, inference
+    from laughter_detection_icsi_tpu_torch.cli import serve
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, smoothing
+
+    probs, thr, pcm, pipe = ctx["probs"], ctx["thr"], ctx["pcm"], ctx["pipe"]
+    saved = work / "serve_probs.npy"
+    stdout = io.StringIO()
+    fbank_cuda.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = serve.main([
+            "--model_path", ctx["ckpt"], "--input", str(ctx["wav"]), "--threshold", str(thr),
+            "--min_length", "0.2", "--chunk_ms", "250", "--save_probs", str(saved),
+            "--device", "cuda",
+        ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fbank_cuda.launches
+    check(rc == 0, f"serve returned {rc}")
+    lines = [json.loads(line) for line in stdout.getvalue().splitlines()]
+    check(lines[0]["type"] == "ready" and lines[-1]["type"] == "done", "serve NDJSON framing")
+    check(lines[0]["device"].startswith("cuda"), f"serve ran on {lines[0]['device']}")
+    check(launches == ctx["n_buckets"] + 1,
+          f"serve: fbank kernel launched {launches} times for {ctx['n_buckets']} buckets + warm-up")
+    got = np.load(saved)
+    check(got.shape == (1, len(probs)) and np.array_equal(got[0], probs),
+          "streamed probabilities differ from the offline ones")
+    fps = len(probs) / (len(pcm) / 16000)
+    want = smoothing.get_laughter_instances(probs, [thr], [0.2], fps=fps)[(thr, 0.2)]
+    want = [(round(s, 3), round(e, 3)) for s, e in want]
+    events = [(e["start"], e["end"]) for e in lines if e["type"] == "event"]
+    check(events == want and len(events) > 0, f"serve events {events[:3]}... != offline {want[:3]}...")
+    print(f"serve replay (--chunk_ms 250): probabilities bit-equal to offline; {len(events)} "
+          f"events equal the offline smoothing; fbank kernel launched {launches} times "
+          f"({ctx['n_buckets']} buckets + 1 warm-up); wall {wall:.3f} s incl. model load")
+
+    # The feed that completes bucket 0, on a warm pipeline.
+    sess = inference.StreamingSession(pipe)
+    n0 = pipe.wave_len - host_prep.pad_amounts(len(pcm))[0] - 4000
+    check(len(sess.feed(pcm[:n0])) == 0, "a bucket completed early")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = sess.feed(pcm[n0 : n0 + 4000])
+    end.record()
+    end.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    check(len(out) == pipe.settings.bucket_frames, f"the feed gave {len(out)} frames")
+    print(f"a 250 ms feed that completes a bucket: {start.elapsed_time(end):.2f} ms between "
+          f"CUDA events around it, {host_ms:.2f} ms on the host clock; bucket_latency_s "
+          f"{lines[0]['bucket_latency_s']} (audio a bucket waits for) on {card}")
+    return launches
+
+
+def phase_multichannel(card, work: Path, ctx: dict) -> int:
+    """4 channels through ShardedPipeline and serve --channels 4; returns
+    the kernel launches of one offline batch."""
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep, inference
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, smoothing
+    from laughter_detection_icsi_tpu_torch.parallel import (
+        ShardedPipeline, ShardedStreamingSession)
+
+    n = 16000 * SECONDS
+    chans = [speechlike(n - (777 if c == 3 else 0), seed=10 + c) for c in range(4)]
+    spipe = ShardedPipeline(ctx["model"], settings=inference.settings_from_flags(device="cuda"),
+                            device="cuda")
+    spipe.probs_for_waveforms(chans)  # warms cuDNN up for the batch
+    fbank_cuda.launches = 0
+    rows = spipe.probs_for_waveforms(chans)
+    torch.cuda.synchronize()
+    launches = fbank_cuda.launches
+    padded, ts = zip(*(host_prep.host_pad_waveform(w) for w in chans))
+    n_batches = len(list(spipe.bucket_batches(padded, ts, int16_in=True)))
+    check(launches == n_batches, f"multichannel: {launches} launches for {n_batches} bucket batches")
+    for r, t in zip(rows, ts):
+        check_probs(r, (t,), "multichannel")
+    d_row = max(np.abs(r - ctx["pipe"].probs_for_waveform(w)).max() for r, w in zip(rows, chans))
+    check(d_row <= 1e-5, f"multichannel rows vs single-channel differ by {d_row:.3e} > 1e-5")
+    print(f"4 channels x {SECONDS} s (one 777 samples shorter): fbank kernel launched {launches} "
+          f"times ({n_batches} bucket batches); rows vs LaughterPipeline max |diff| = {d_row:.3e} "
+          f"(limit 1e-5)")
+
+    m = n - 777  # a live meeting's channels advance together
+    equal = [w[:m] for w in chans]
+    want = spipe.probs_for_waveforms(equal)
+    sess = ShardedStreamingSession(spipe, n_channels=4)
+    outs = [sess.feed([w[lo : lo + 4000] for w in equal]) for lo in range(0, m, 4000)]
+    full = np.concatenate(outs + [sess.finish()], axis=1)
+    check(full.shape == (4, len(want[0])) and all(np.array_equal(a, b) for a, b in zip(full, want)),
+          "ShardedStreamingSession differs from the offline batch")
+    print("ShardedStreamingSession (250 ms feeds) equals the offline batch bit for bit")
+
+    run = lambda: spipe.probs_for_waveforms(chans)
+    took = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        took.append(time.perf_counter() - t0)
+    audio_s = sum(len(w) for w in chans) / 16000
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"multichannel batch on {card}: {audio_s:.3f} audio-seconds in "
+          f"{', '.join(f'{s:.4f}' for s in took)} s -> {audio_s / min(took):.1f} audio-s per "
+          f"wall-s (best of 3); peak device memory {peak / 2**30:.3f} GiB")
+    device_breakdown("probs_for_waveforms (4 channels)", run, min(took),
+                     work / "multichannel.trace.json")
+    # Each channel is classified alone, so the peak does not grow with the
+    # channel count: 9 channels of 20 s (an ICSI meeting can have 9 or more).
+    nine = [speechlike(16000 * 20, seed=30 + c) for c in range(9)]
+    spipe.probs_for_waveforms(nine)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    spipe.probs_for_waveforms(nine)
+    took9 = time.perf_counter() - t0
+    print(f"9 channels x 20 s: {9 * 20 / took9:.1f} audio-s per wall-s (one warm call), peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    # serve --channels 4: interleaved s16le on stdin, in a process of its own.
+    seg = [w[: min(16000 * 20, m)] for w in chans]
+    offline = spipe.probs_for_waveforms(seg)
+    thr = midway_threshold(np.concatenate(offline))
+    want = [[(round(s, 3), round(e, 3)) for s, e in
+             smoothing.get_laughter_instances(p, [thr], [0.2])[(thr, 0.2)]] for p in offline]
+    proc = subprocess.run(
+        [sys.executable, "-m", "laughter_detection_icsi_tpu_torch.cli.serve",
+         "--model_path", ctx["ckpt"], "--channels", "4", "--threshold", str(thr),
+         "--min_length", "0.2", "--device", "cuda"],
+        input=np.stack(seg, axis=1).astype("<i2").tobytes(), cwd=REPO,
+        capture_output=True, timeout=600,
+    )
+    check(proc.returncode == 0, f"serve --channels 4 exited {proc.returncode}: "
+          f"{proc.stderr.decode()[-2000:]}")
+    lines = [json.loads(line) for line in proc.stdout.decode().splitlines()]
+    check(lines[0]["type"] == "ready" and lines[0]["channels"] == 4, "serve: no ready line")
+    for c in range(4):
+        got = [(e["start"], e["end"]) for e in lines if e["type"] == "event" and e["channel"] == c]
+        check(got == want[c], f"serve channel {c}: events {got[:3]}... != offline {want[c][:3]}...")
+    print(f"serve --channels 4 over stdin (20 s, a subprocess): every channel's events equal its "
+          f"offline events ({', '.join(str(len(w)) for w in want)} events)")
+    return launches
+
+
+def device_breakdown(what: str, fn, best_s: float, trace_path: Path) -> None:
     """Profile one call of ``fn`` (torch.profiler) and print where its device
     time goes: the busy share of the call's wall time, the kernels with the
     most device time, and the fbank kernel's share.  A profiler that records
@@ -448,7 +777,7 @@ def device_breakdown(fn, best_s: float, trace_path: Path) -> None:
             busy_us += b - max(a, end)
             end = b
     busy_ms = busy_us / 1e3
-    print(f"profiled segment_file: wall {wall_ms:.2f} ms, {len(dev)} device ops, "
+    print(f"profiled {what}: wall {wall_ms:.2f} ms, {len(dev)} device ops, "
           f"device time {total_ms:.2f} ms, busy {busy_ms:.2f} ms = "
           f"{100 * busy_ms / wall_ms:.1f}% of this call's wall "
           f"({100 * busy_ms / (1e3 * best_s):.1f}% of the best unprofiled e2e)")
@@ -483,7 +812,13 @@ def main() -> int:
         print("== 3. fbank kernel vs its plain version ==")
         entry = phase_kernel(card, peak, block_frames)
         print("== 4. main path ==")
-        launches = phase_main_path(card, work)
+        ctx = phase_main_path(card, work)
+        print("== 5. fused_conv ==")
+        fused = phase_fused_conv(card, work, ctx)
+        print("== 6. streaming and serve ==")
+        streamed = phase_streaming(card, work, ctx)
+        print("== 7. multichannel ==")
+        batched = phase_multichannel(card, work, ctx)
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -492,9 +827,12 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    print(f"fbank launches per path: windows {ctx['launches']} ({ctx['n_buckets']} buckets), "
+          f"fused_conv {fused} (one file), serve replay {streamed} ({ctx['n_buckets']} buckets "
+          f"+ warm-up), multichannel {batched} (bucket batches of 4 channels)")
     entry = {"name": entry.pop("name"), "route": entry.pop("route"),
              "source": entry.pop("source"), "replaces": entry.pop("replaces"),
-             "launches": launches, **entry}
+             "launches": ctx["launches"], **entry}
     print(card)
     print(json.dumps({"kernels": [entry]}))
     print(json.dumps({"ok": True, "device": {

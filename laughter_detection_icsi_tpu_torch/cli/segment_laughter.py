@@ -8,8 +8,9 @@ The same flags as the JAX package's ``cli/segment_laughter.py``, plus
         --input_audio_file meeting.wav --model_path checkpoints/resnet_base \\
         --output_dir out --save_to_textgrid True --device cuda
 
-Options the JAX CLI has but this port does not carry yet (``--mode
-fused_conv``, ``--transfer_codec auto|packed``, ``--precision bfloat16``)
+``--mode fused_conv`` runs the conv stack once over the whole track
+(models/fully_conv.py).  Options the JAX CLI has but this port does not
+carry yet (``--transfer_codec auto|packed``, ``--precision bfloat16``)
 parse, then fail with an error naming the ROADMAP item that ports them.
 """
 
@@ -59,8 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "the card, 1024 on the CPU)")
     p.add_argument("--mode", type=str, default="windows",
                    choices=["windows", "fused_conv"],
-                   help="'windows' = reference-exact per-window conv "
-                        "('fused_conv' is not ported yet)")
+                   help="'windows' = reference-exact per-window conv; "
+                        "'fused_conv' = the conv stack once over the whole "
+                        "track (faster, not checkpoint parity)")
     p.add_argument("--transfer_codec", type=str, default="raw",
                    choices=["raw", "auto", "packed"],
                    help="host->device PCM transfer ('raw' only for now)")

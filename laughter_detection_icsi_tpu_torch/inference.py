@@ -1,7 +1,8 @@
 """End-to-end laughter inference: PCM -> fbank -> windows -> model -> probs.
 
-The port of the JAX package's ``inference.LaughterPipeline`` in its
-reference-exact ``windows`` mode.  Per fixed-size bucket of frames:
+The port of the JAX package's ``inference.LaughterPipeline`` and its
+streaming sessions.  In the reference-exact ``windows`` mode, per
+fixed-size bucket of frames:
 
 1. the bucket's slice of the host-padded PCM (Kaldi snip_edges=False
    reflection padding, host_prep.py) is uploaded once — 16-bit sources as
@@ -15,6 +16,11 @@ reference-exact ``windows`` mode.  Per fixed-size bucket of frames:
    window batch;
 4. the [T] probabilities stay on the device for the threshold x min-length
    smoothing (ops/smoothing.py); only run tables come back.
+
+``mode='fused_conv'`` featurizes the whole track in one launch and runs
+the dilated conv stack once over it (models/fully_conv.py).
+``StreamingSession`` feeds live PCM through the same bucket body, so its
+probabilities equal the offline ones bit for bit.
 
 The pipeline runs on the device it is given, ``cuda`` by default, and in
 float32 with TF32 off (``strict_fp32``).  Features of the JAX pipeline that
@@ -36,7 +42,7 @@ import torch.nn.functional as F
 from laughter_detection_icsi_tpu_torch import host_prep
 from laughter_detection_icsi_tpu_torch.config import FEAT, FeatConfig
 from laughter_detection_icsi_tpu_torch.data import audio as audio_io
-from laughter_detection_icsi_tpu_torch.models import shared_stem
+from laughter_detection_icsi_tpu_torch.models import fully_conv, shared_stem
 from laughter_detection_icsi_tpu_torch.ops import smoothing, windows
 from laughter_detection_icsi_tpu_torch.ops.fbank_cuda import fbank_cuda
 
@@ -61,7 +67,10 @@ class InferenceSettings:
     # Shared-stem windows mode (models/shared_stem.py): None = on for the
     # ResNet family; False forces the naive window batch.
     shared_stem: Optional[bool] = None
-    mode: str = "windows"  # 'fused_conv' is not ported yet
+    # 'windows' = reference-exact per-window conv; 'fused_conv' = the conv
+    # stack once over the whole track (models/fully_conv.py), not
+    # checkpoint parity.
+    mode: str = "windows"
 
     def __post_init__(self):
         for name in ("chunk", "bucket_frames", "window"):
@@ -74,8 +83,12 @@ class InferenceSettings:
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.transfer_codec not in ("auto", "raw", "packed"):
             raise ValueError(f"unknown transfer_codec {self.transfer_codec!r}")
-        if self.mode == "fused_conv":
-            raise _not_ported("mode='fused_conv'", 1)
+        if self.transfer_codec == "packed" and self.mode == "fused_conv":
+            raise ValueError(
+                "transfer_codec='packed' is not implemented for "
+                "mode='fused_conv' (the whole-track graph has no packed "
+                "decode stage); use 'raw', or the 'windows' mode"
+            )
         if self.transfer_codec != "raw":
             raise _not_ported(f"transfer_codec={self.transfer_codec!r}", 4)
         if self.precision == "bfloat16":
@@ -137,6 +150,101 @@ def int16_transfer_eligible(meta, settings) -> bool:
     )
 
 
+def upload_wave(buf: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host buffer to the device as float32: int16 ships as int16 and
+    is scaled by 1/32768 there (the same numbers as scaling on the host)."""
+    wave = torch.from_numpy(buf).to(device)
+    if wave.dtype == torch.int16:
+        wave = wave.float() * (1.0 / 32768.0)
+    return wave
+
+
+def check_pcm(wave: np.ndarray) -> None:
+    """Refuse what is not one channel of int16 or float PCM: silently
+    casting e.g. int32 PCM would feed +-30000-range values to a featurizer
+    expecting [-1, 1]."""
+    if wave.ndim != 1:
+        raise ValueError(
+            f"want 1-D PCM (one channel), got shape {wave.shape}; use "
+            "parallel.sharded_inference.ShardedPipeline for multichannel batches"
+        )
+    if wave.dtype not in (np.int16, np.float32, np.float64):
+        raise TypeError(
+            f"unsupported PCM dtype {wave.dtype}; pass int16 or "
+            "float32/float64 in [-1, 1]"
+        )
+
+
+def classify_bucket(
+    model: torch.nn.Module, feats: torch.Tensor, valid: int,
+    settings: InferenceSettings, use_shared_stem: bool,
+) -> torch.Tensor:
+    """One bucket's features ([bucket + window - 1, F], the bucket and its
+    halo) -> its [n_chunks * chunk] probabilities.  Frames at or past
+    ``valid`` are zeroed (the reference InferenceDataset's zero-pad tail),
+    then one window per frame is classified, ``chunk`` windows at a time:
+    through the shared stem, or as a naive window batch.  The classify step
+    of every windows-mode path, a multichannel batch's rows included."""
+    s = settings
+    n_chunks = -(-s.bucket_frames // s.chunk)
+    # Enough rows that the last window of the last chunk reads in bounds.
+    feat_rows = n_chunks * s.chunk + s.window - 1
+    valid_rows = torch.arange(feats.shape[0], device=feats.device)[:, None] < valid
+    feats = F.pad(torch.where(valid_rows, feats, 0.0), (0, 0, 0, feat_rows - feats.shape[0]))
+    starts = [i * s.chunk for i in range(n_chunks)]
+    if not use_shared_stem:
+        outs = [
+            model(windows.extract_windows(feats, i, s.chunk, s.window)[:, None])
+            for i in starts
+        ]
+    elif shared_stem.supports_track2(s.window):
+        track1 = shared_stem.stem_track(model, feats)
+        track2 = shared_stem.stem_track2(model, track1)
+        outs = [
+            shared_stem.chunk_probs_from_track2(
+                model, track1, track2, feats, i, s.chunk, s.window
+            )
+            for i in starts
+        ]
+    else:
+        track1 = shared_stem.stem_track(model, feats)
+        outs = [
+            shared_stem.chunk_probs_from_track(model, track1, feats, i, s.chunk, s.window)
+            for i in starts
+        ]
+    return torch.cat(outs)
+
+
+def track_wave_len(total_frames: int, feat_cfg: FeatConfig = FEAT) -> int:
+    """Samples a whole-track (fused_conv) buffer of ``total_frames`` frames
+    holds under the snip_edges geometry of the host-padded wave."""
+    cfg = host_prep.snip_cfg(feat_cfg)
+    return (total_frames - 1) * cfg.frame_shift_samples + cfg.frame_length_samples
+
+
+def fused_conv_probs(
+    model: torch.nn.Module, bufs: np.ndarray, valid: Sequence[int],
+    feat_cfg: FeatConfig, window: int, device: torch.device,
+) -> torch.Tensor:
+    """mode='fused_conv' over a channel batch: [C, wave_len] whole-track
+    buffers and each channel's frame count -> [C, total] probabilities on
+    the device.  One fbank launch featurizes the batch; frames at or past a
+    channel's count are zeroed; the dilated conv stack then runs channel
+    by channel, at most ``fully_conv.MAX_BLOCKS`` blocks a dispatch
+    (``fully_conv_probs_blocked``), so the live activations are bounded
+    whatever the channel count and the track length.  The tail past a
+    channel's count holds a bias-leak constant, not 0: callers slice it
+    off."""
+    with torch.inference_mode(), strict_fp32():
+        feats = fbank_cuda(upload_wave(bufs, device), host_prep.snip_cfg(feat_cfg))
+        rows = torch.arange(feats.shape[1], device=device)
+        counts = torch.as_tensor(np.asarray(valid, dtype=np.int64), device=device)
+        feats = torch.where((rows[None, :] < counts[:, None])[:, :, None], feats, 0.0)
+        return torch.stack(
+            [fully_conv.fully_conv_probs_blocked(model, f, window) for f in feats]
+        )
+
+
 class LaughterPipeline:
     """Featurize + classify for one model, on one device."""
 
@@ -160,44 +268,13 @@ class LaughterPipeline:
 
     def _bucket_probs(self, buf: np.ndarray, valid: int) -> torch.Tensor:
         """One bucket buffer (``wave_len`` samples, int16 or float32) -> its
-        [n_chunks * chunk] probabilities, on the device."""
-        s = self.settings
-        ext = s.bucket_frames + s.window - 1  # frames featurized (with halo)
-        n_chunks = -(-s.bucket_frames // s.chunk)
-        # Enough rows that the last window of the last chunk reads in bounds.
-        feat_rows = n_chunks * s.chunk + s.window - 1
+        [n_chunks * chunk] probabilities, on the device.  The one bucket
+        body: the offline loop and StreamingSession both run through it,
+        which keeps streaming bit-equal to offline."""
         with torch.inference_mode(), strict_fp32():
-            wave = torch.from_numpy(buf).to(self.device)
-            if wave.dtype == torch.int16:
-                wave = wave.float() * (1.0 / 32768.0)
-            feats = fbank_cuda(wave, host_prep.snip_cfg(self.feat_cfg))  # [ext, F]
-            valid_rows = torch.arange(ext, device=self.device)[:, None] < valid
-            feats = torch.where(valid_rows, feats, 0.0)
-            feats = F.pad(feats, (0, 0, 0, feat_rows - ext))
-            starts = [i * s.chunk for i in range(n_chunks)]
-            if not self.shared_stem:
-                outs = [
-                    self.model(windows.extract_windows(feats, i, s.chunk, s.window)[:, None])
-                    for i in starts
-                ]
-            elif shared_stem.supports_track2(s.window):
-                track1 = shared_stem.stem_track(self.model, feats)
-                track2 = shared_stem.stem_track2(self.model, track1)
-                outs = [
-                    shared_stem.chunk_probs_from_track2(
-                        self.model, track1, track2, feats, i, s.chunk, s.window
-                    )
-                    for i in starts
-                ]
-            else:
-                track1 = shared_stem.stem_track(self.model, feats)
-                outs = [
-                    shared_stem.chunk_probs_from_track(
-                        self.model, track1, feats, i, s.chunk, s.window
-                    )
-                    for i in starts
-                ]
-            return torch.cat(outs)
+            # [bucket + window - 1, F]: the bucket and its halo.
+            feats = fbank_cuda(upload_wave(buf, self.device), host_prep.snip_cfg(self.feat_cfg))
+            return classify_bucket(self.model, feats, valid, self.settings, self.shared_stem)
 
     def bucket_buffers(self, padded: np.ndarray, t: int):
         """Yield ``(buf, valid_frames, keep_frames)`` per bucket: the
@@ -222,28 +299,31 @@ class LaughterPipeline:
         """Like :meth:`probs_for_waveform`, but the probabilities stay on
         the device (for ops/smoothing.instances_from_device_probs)."""
         wave = np.asarray(wave)
-        if wave.ndim != 1:
-            raise ValueError(
-                f"probs_for_waveform wants 1-D PCM, got shape {wave.shape}; "
-                "pass one channel"
-            )
-        if wave.dtype not in (np.int16, np.float32, np.float64):
-            # Silently casting e.g. int32 PCM would feed +-30000-range values
-            # to a featurizer expecting [-1, 1].
-            raise TypeError(
-                f"unsupported PCM dtype {wave.dtype}; pass int16 or "
-                "float32/float64 in [-1, 1]"
-            )
+        check_pcm(wave)
         if wave.dtype != np.int16:
             wave = wave.astype(np.float32)
         padded, t = host_prep.host_pad_waveform(wave, self.feat_cfg)
         if t == 0:
             return torch.zeros(0, dtype=torch.float32, device=self.device)
+        if self.settings.mode == "fused_conv":
+            return self._probs_fused_conv_device(padded, t)
         pieces = [
             self._bucket_probs(buf, valid)[:keep]
             for buf, valid, keep in self.bucket_buffers(padded, t)
         ]
         return torch.cat(pieces)
+
+    def _probs_fused_conv_device(self, padded: np.ndarray, t: int) -> torch.Tensor:
+        """The whole track in one buffer of a bucket-multiple frame count
+        (one shape per rounded length), featurized in one launch."""
+        bucket = self.settings.bucket_frames
+        total = max(bucket, -(-t // bucket) * bucket)
+        buf = np.zeros((1, track_wave_len(total, self.feat_cfg)), dtype=padded.dtype)
+        buf[0, : len(padded)] = padded
+        probs = fused_conv_probs(
+            self.model, buf, [t], self.feat_cfg, self.settings.window, self.device
+        )
+        return probs[0, :t]
 
     def probs_for_file(
         self, audio_path: str, channel: int = 0, keep_on_device: bool = False
@@ -286,11 +366,255 @@ class LaughterPipeline:
         return instances, time.perf_counter() - t0
 
 
-class StreamingSession:
-    """Online inference over one audio stream: not ported yet."""
+class _StreamingBase:
+    """Shared state machine for online (streaming) inference sessions.
+
+    Owns everything the single-stream and the multichannel session must
+    agree on for streaming to equal offline bit for bit: per-chunk dtype
+    validation and normalization (int16 into a float stream scales exactly
+    like the offline mixed path), the constant left reflection pad applied
+    once a whole frame exists (shorter streams have truncated-reflection
+    padding only the offline path reproduces, so :meth:`_finish_impl`
+    delegates them), the eager full-validity bucket loop (a bucket runs
+    only once every sample its windows and halo read is final), memory
+    bounding, and the end-of-stream reflection and flush.  Subclasses
+    provide the bucket executor, the short-stream delegate and the output
+    shape.
+    """
+
+    def __init__(self, pipeline, n_streams: int):
+        if pipeline.settings.mode != "windows":
+            raise ValueError(f"{type(self).__name__} requires mode='windows'")
+        if pipeline.feat_cfg.snip_edges:
+            # Same contract as the offline path (host_pad_waveform): the
+            # streaming left/right reflection pads implement
+            # snip_edges=False framing; applying them under a
+            # snip_edges=True cfg would shift every frame.
+            raise ValueError(
+                f"{type(self).__name__} implements snip_edges=False "
+                "framing; a snip_edges=True FeatConfig must not reach it"
+            )
+        if n_streams < 1:
+            raise ValueError("need at least one stream")
+        self._pipe = pipeline
+        self._cfg = host_prep.snip_cfg(pipeline.feat_cfg)
+        self.n_streams = n_streams
+        self._raw_head: Optional[List[List[np.ndarray]]] = [[] for _ in range(n_streams)]
+        self._bufs: List[np.ndarray] = []
+        # Chunks appended since the last consolidation: feed() is O(chunk);
+        # the buffer materializes only when a bucket executes or trims.
+        self._pending: List[List[np.ndarray]] = [[] for _ in range(n_streams)]
+        self._total = 0  # padded samples known so far (incl. consumed ones)
+        self._consumed = 0  # padded samples dropped from the buffers' front
+        self._n = 0  # raw samples seen per stream
+        self._bucket_idx = 0
+        self._dtype: Optional[np.dtype] = None
+        self._finished = False
+
+    # ---- subclass hooks ---------------------------------------------- #
+
+    def _execute(self, buf_slices: List[np.ndarray], valid: int) -> np.ndarray:
+        """[n_streams] bucket buffers -> [n_streams, bucket+extra] probs."""
+        raise NotImplementedError
+
+    def _delegate_short(self, heads: List[np.ndarray]) -> np.ndarray:
+        """Whole-stream fallback for streams shorter than one frame."""
+        raise NotImplementedError
+
+    def _empty(self) -> np.ndarray:
+        return np.zeros((self.n_streams, 0), dtype=np.float32)
+
+    # ---- shared machinery -------------------------------------------- #
+
+    @property
+    def _left_pad(self) -> int:
+        # Kaldi's per-term truncation, matching host_prep.pad_amounts.
+        cfg = self._cfg
+        return cfg.frame_length_samples // 2 - cfg.frame_shift_samples // 2
+
+    def _padded_buffer(self, buf_slice: np.ndarray) -> np.ndarray:
+        """A bucket's buffer: the slice, zero-filled to the bucket length
+        (the offline loop's bucket_buffers, exactly)."""
+        buf = np.zeros(self._pipe.wave_len, dtype=self._dtype)
+        src = buf_slice[: self._pipe.wave_len]
+        buf[: len(src)] = src
+        return buf
+
+    def _append(self, chunks: Sequence[np.ndarray]) -> None:
+        if len(chunks) != self.n_streams:
+            raise ValueError(
+                f"expected {self.n_streams} channel chunks, got {len(chunks)}"
+            )
+        chunks = [np.asarray(c) for c in chunks]
+        for c in chunks:
+            if c.ndim != 1:
+                raise ValueError("feed() wants 1-D PCM chunks")
+            if len(c) and c.dtype not in (np.int16, np.float32, np.float64):
+                raise TypeError(f"unsupported PCM dtype {c.dtype}")
+        n = len(chunks[0])
+        if any(len(c) != n for c in chunks):
+            raise ValueError("channel chunks must have equal lengths")
+        if self._dtype is None and n:
+            self._dtype = np.dtype(
+                np.int16 if all(c.dtype == np.int16 for c in chunks) else np.float32
+            )
+        if n:
+            conv = []
+            for c in chunks:
+                if c.dtype == self._dtype:
+                    # Copy: chunks are kept until a bucket executes, and a
+                    # caller may reuse one capture buffer for every feed
+                    # (the usual audio-callback pattern); an alias would
+                    # corrupt every buffered chunk.  The conversions below
+                    # copy anyway.
+                    conv.append(np.array(c, copy=True))
+                elif self._dtype == np.float32 and c.dtype == np.int16:
+                    # Int16 into a float stream: scale like the offline
+                    # mixed batch (parallel/sharded_inference.py), exactly.
+                    conv.append(c.astype(np.float32) / 32768.0)
+                elif self._dtype == np.float32:
+                    conv.append(c.astype(np.float32))
+                else:
+                    raise TypeError(
+                        "cannot mix float chunks into an int16 stream "
+                        "(floats are not exactly representable as int16)"
+                    )
+            chunks = conv
+        self._n += n
+        if self._raw_head is not None:
+            for i, c in enumerate(chunks):
+                if len(c):
+                    self._raw_head[i].append(c)
+            heads = self._heads()
+            if len(heads[0]) < self._cfg.frame_length_samples:
+                return
+            self._raw_head = None
+            self._bufs = [np.concatenate([h[: self._left_pad][::-1], h]) for h in heads]
+            self._total = len(self._bufs[0])
+            return
+        if n:
+            for i, c in enumerate(chunks):
+                self._pending[i].append(c)
+            self._total += n
+
+    def _consolidate(self) -> None:
+        """Materialize pending chunks into the contiguous buffers (only when
+        a bucket is about to execute or trim)."""
+        if self._pending[0]:
+            self._bufs = [np.concatenate([b, *p]) for b, p in zip(self._bufs, self._pending)]
+            self._pending = [[] for _ in range(self.n_streams)]
+
+    def _heads(self) -> List[np.ndarray]:
+        dtype = self._dtype or np.float32
+        return [
+            np.concatenate(parts) if (parts := [p for p in h if len(p)])
+            else np.zeros(0, dtype=dtype)
+            for h in self._raw_head
+        ]
+
+    def _slices(self, lo: int) -> List[np.ndarray]:
+        o = lo - self._consumed
+        return [b[o : o + self._pipe.wave_len] for b in self._bufs]
+
+    def _feed_impl(self, chunks: Sequence[np.ndarray]) -> np.ndarray:
+        if self._finished:
+            raise RuntimeError("stream already finished")
+        self._append(chunks)
+        if self._raw_head is not None:
+            return self._empty()
+        s = self._pipe.settings
+        shift = self._cfg.frame_shift_samples
+        bucket = s.bucket_frames
+        pieces = []
+        while True:
+            lo = self._bucket_idx * bucket * shift
+            if self._total < lo + self._pipe.wave_len:
+                break
+            self._consolidate()
+            # Every halo sample is final: a full-validity bucket, exactly
+            # the offline path's non-final buckets.
+            probs = self._execute(self._slices(lo), bucket + s.window - 1)
+            pieces.append(probs[:, :bucket])
+            self._bucket_idx += 1
+            # Bound memory: drop consumed samples, keeping what later
+            # buckets and the final reflection pad still need.
+            new_lo = self._bucket_idx * bucket * shift
+            drop = new_lo - self._consumed
+            if drop > 0:
+                self._bufs = [b[drop:] for b in self._bufs]
+                self._consumed = new_lo
+        return np.concatenate(pieces, axis=1) if pieces else self._empty()
+
+    def _finish_impl(self) -> np.ndarray:
+        if self._finished:
+            raise RuntimeError("stream already finished")
+        self._finished = True
+        if self._raw_head is not None:
+            # Too short to ever initialize: delegate whole-stream.
+            return self._delegate_short(self._heads())
+        s = self._pipe.settings
+        shift = self._cfg.frame_shift_samples
+        t = host_prep.num_frames(self._n, self._pipe.feat_cfg)
+        _left, right = host_prep.pad_amounts(self._n, self._pipe.feat_cfg)
+        self._consolidate()
+        if right > 0:
+            self._bufs = [np.concatenate([b, b[len(b) - right :][::-1]]) for b in self._bufs]
+            self._total += right
+        bucket = s.bucket_frames
+        pieces = []
+        emitted = self._bucket_idx * bucket
+        while emitted < t:
+            lo = self._bucket_idx * bucket * shift
+            valid = min(t - self._bucket_idx * bucket, bucket + s.window - 1)
+            probs = self._execute(self._slices(lo), valid)
+            pieces.append(probs[:, : min(bucket, t - emitted)])
+            emitted += bucket
+            self._bucket_idx += 1
+        return np.concatenate(pieces, axis=1) if pieces else self._empty()
+
+
+class StreamingSession(_StreamingBase):
+    """Online (streaming) inference over one audio stream.
+
+    Feed PCM in chunks of any size; probabilities come back as soon as
+    their bucket completes, so a live stream is classified with bounded
+    latency (``bucket_frames`` x 10 ms + compute) and bounded memory.  The
+    emitted sequence equals ``pipeline.probs_for_waveform`` of the
+    concatenated audio bit for bit: a bucket runs through the pipeline's
+    own ``_bucket_probs`` at the offline shapes, only once every sample its
+    windows (and their halo) read is final, and the end-of-stream
+    reflection padding is applied in :meth:`finish`, as offline.  The
+    multichannel version is
+    ``parallel.sharded_inference.ShardedStreamingSession``.
+
+    Usage::
+
+        sess = StreamingSession(pipeline)
+        for chunk in microphone():        # int16 or float32 PCM @ 16 kHz
+            probs = sess.feed(chunk)      # [k] newly final frame probs
+        probs_tail = sess.finish()
+    """
 
     def __init__(self, pipeline: LaughterPipeline):
-        raise _not_ported("StreamingSession (streaming inference)", 2)
+        super().__init__(pipeline, n_streams=1)
+
+    def _execute(self, buf_slices: List[np.ndarray], valid: int) -> np.ndarray:
+        buf = self._padded_buffer(buf_slices[0])
+        return self._pipe._bucket_probs(buf, valid).cpu().numpy()[None, :]
+
+    def _delegate_short(self, heads: List[np.ndarray]) -> np.ndarray:
+        return self._pipe.probs_for_waveform(heads[0])
+
+    def feed(self, pcm: np.ndarray) -> np.ndarray:
+        """Add a PCM chunk; returns probabilities for every frame that
+        became final (possibly none)."""
+        return self._feed_impl([pcm])[0]
+
+    def finish(self) -> np.ndarray:
+        """End of stream: apply the final reflection padding and flush the
+        remaining frames."""
+        out = self._finish_impl()
+        return out if out.ndim == 1 else out[0]
 
 
 def calc_real_time_factor(

@@ -44,6 +44,16 @@ def batch_norm(x: torch.Tensor, bn: Optional[nn.Module]) -> torch.Tensor:
     return y + bn.bias.reshape(shape)
 
 
+def bn_eval_affine(bn: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval BatchNorm folded to per-channel ``(scale, bias)``, ``y = x *
+    scale + bias`` (JAX ``layers.bn_eval_affine``).  Algebraically
+    :func:`batch_norm` but not bit-identical to it: only the fully
+    convolutional path (models/fully_conv.py) folds, as JAX's does; the
+    windows paths keep :func:`batch_norm` so that they round alike."""
+    scale = bn.weight * torch.rsqrt(bn.running_var + BN_EPS)
+    return scale, bn.bias - bn.running_mean * scale
+
+
 def avg_pool2d(x: torch.Tensor, k: int) -> torch.Tensor:
     """torch AvgPool2d(k) semantics (stride k, no padding, floor output
     size), computed as a mean over the reshaped k x k cells."""

@@ -14,11 +14,12 @@ device and brings only [K, max_events] integer tables to the host, where
 the min-length filter applies in float64, so its result is exactly
 ``get_laughter_instances``'.  A threshold whose runs overflow
 ``max_events`` falls back to the unbounded host scan.
+``StreamingEventDetector`` is the incremental twin for live streams.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +33,64 @@ def _fix_over_underflow_np(probs: np.ndarray) -> np.ndarray:
     """Host twin of :func:`fix_over_underflow`."""
     probs = np.where(probs > 1.0, 1.0, probs)
     return np.where(probs <= 0.0, OVERFLOW_EPS, probs)
+
+
+class StreamingEventDetector:
+    """Incremental run-length smoothing for one (threshold, min_length).
+
+    The online companion of :func:`get_laughter_instances`: feed frame
+    probabilities chunk by chunk (e.g. from ``inference.StreamingSession``)
+    and each laughter event comes back when its run closes (the next frame
+    drops below the threshold); ``finish()`` closes a run still open at end
+    of stream.  Over any chunking the events equal the offline function's:
+    the same fix_over_underflow, float32 ``>``, (first, LAST)/fps spans and
+    strict ``>`` min-length.
+    """
+
+    def __init__(self, threshold: float, min_length: float = 0.2, fps: float = 100.0):
+        self.threshold = float(threshold)
+        self.min_length = float(min_length)
+        self.fps = float(fps)
+        self._f = 0  # global frame index of the next fed frame
+        self._open: Optional[int] = None  # start frame of the open run
+        self._done = False
+
+    def _emit(self, start_f: int, last_f: int) -> Optional[Tuple[float, float]]:
+        s, e = start_f / self.fps, last_f / self.fps
+        return (s, e) if e - s > self.min_length else None
+
+    def feed(self, probs: np.ndarray) -> List[Tuple[float, float]]:
+        """Add frame probabilities; returns the events that closed."""
+        if self._done:
+            raise RuntimeError("detector already finished")
+        probs = _fix_over_underflow_np(np.asarray(probs, dtype=np.float32))
+        mask = probs > np.float32(self.threshold)
+        prev = np.int8(0 if self._open is None else 1)
+        d = np.diff(np.concatenate([[prev], mask.astype(np.int8)]))
+        starts = list(self._f + np.nonzero(d == 1)[0])
+        lasts = list(self._f + np.nonzero(d == -1)[0] - 1)
+        events: List[Tuple[float, float]] = []
+        for last_f in lasts:  # transitions alternate: each close pairs in order
+            start_f = self._open if self._open is not None else starts.pop(0)
+            self._open = None
+            ev = self._emit(int(start_f), int(last_f))
+            if ev is not None:
+                events.append(ev)
+        if starts:  # a run is still open at the chunk's end
+            self._open = int(starts[0])
+        self._f += len(mask)
+        return events
+
+    def finish(self) -> List[Tuple[float, float]]:
+        """End of stream: close and (maybe) emit the open run."""
+        if self._done:
+            raise RuntimeError("detector already finished")
+        self._done = True
+        if self._open is None:
+            return []
+        ev = self._emit(self._open, self._f - 1)
+        self._open = None
+        return [ev] if ev is not None else []
 
 
 def fix_over_underflow(probs: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from laughter_detection_icsi_tpu import models as jax_models
 from laughter_detection_icsi_tpu_torch.models import zoo
@@ -66,3 +68,16 @@ def both_models(arch: str, seed: int = 0, head_gain: float = 1.0, **kw):
     tmodel.load_state_dict(state_dict_from_jax(params, state), strict=True)
     to_j = lambda t: jax.tree_util.tree_map(jnp.asarray, t)
     return jmodel, to_j(params), to_j(state), tmodel
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """Two intra-op threads for the torch CPU work of a test module: the
+    suite runs several pytest workers on one machine, and each worker's
+    torch would otherwise spin up a thread per core and contend with the
+    others.  A test module takes it with ``from tests.fixtures.torch_weights
+    import few_torch_threads``."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)

@@ -116,3 +116,50 @@ def test_pipeline_launches_once_per_bucket(card):
     assert fbank_cuda.launches - before == 3
     cpu = inference.LaughterPipeline(model, settings=settings, device="cpu")
     np.testing.assert_allclose(probs, cpu.probs_for_waveform(wave), rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(inference.track_wave_len(18_432),), (4, 999_120)],
+                         ids=["fused_conv whole track", "multichannel bucket batch"])
+def test_kernel_matches_plain_at_serving_shapes(card, shape):
+    # fused_conv's whole track for 150 s (18,432 frames, one launch) and a
+    # [4, bucket] multichannel bucket batch (one launch per batch).
+    cfg = host_prep.snip_cfg(FEAT)
+    x = torch.from_numpy(_wave(shape, seed=5)).to(card)
+    with inference.strict_fp32():
+        got = fbank_cuda.fbank_cuda(x, cfg)
+        want = tfb.fbank(x, cfg)
+    assert got.shape[-2] == (18_432 if len(shape) == 1 else 6243)
+    torch.testing.assert_close(got, want, **TOL)
+    if x.ndim == 2:
+        for c in range(x.shape[0]):
+            assert torch.equal(got[c], fbank_cuda.fbank_cuda(x[c].contiguous(), cfg))
+
+
+def _small_model():
+    return zoo.build("ResNetBigger", linear_layer_size=24, filter_sizes=(8, 8, 8, 8))
+
+
+@pytest.mark.cuda
+def test_fully_conv_blocked_matches_whole_track(card):
+    from laughter_detection_icsi_tpu_torch.models import fully_conv
+
+    model = _small_model().to(card)
+    feats = torch.from_numpy(_wave((2500, FEAT.num_filters), seed=6) * 5).to(card)
+    with torch.inference_mode(), inference.strict_fp32():
+        whole = fully_conv.fully_conv_probs(model, feats)
+        blocked = fully_conv.fully_conv_probs_blocked(model, feats)
+        grouped = fully_conv.fully_conv_probs_blocked(model, feats, block=256, max_blocks=3)
+    torch.testing.assert_close(blocked, whole, rtol=0, atol=1e-5)
+    torch.testing.assert_close(grouped, whole, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_streaming_equals_offline(card):
+    settings = inference.InferenceSettings(chunk=128, bucket_frames=256)
+    pipe = inference.LaughterPipeline(_small_model(), settings=settings)
+    wave = (_wave(16000 * 20, seed=7) * 32767 / 4).astype(np.int16)
+    sess = inference.StreamingSession(pipe)
+    outs = [sess.feed(wave[lo : lo + 4000]) for lo in range(0, len(wave), 4000)]
+    got = np.concatenate(outs + [sess.finish()])
+    np.testing.assert_array_equal(got, pipe.probs_for_waveform(wave))

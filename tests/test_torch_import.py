@@ -17,11 +17,12 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_probe")  # defines, runs nothing
-from laughter_detection_icsi_tpu_torch.cli import segment_laughter
-try:
-    segment_laughter.main(["--help"])
-except SystemExit as e:
-    assert e.code == 0, e.code
+from laughter_detection_icsi_tpu_torch.cli import segment_laughter, serve
+for cli in (segment_laughter, serve):
+    try:
+        cli.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
 bad = sorted(m for m in sys.modules
              if m in ("jax", "laughter_detection_icsi_tpu")
              or m.startswith(("jax.", "laughter_detection_icsi_tpu.")))
@@ -38,8 +39,10 @@ def test_port_never_imports_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(re.search(r"MODULES (\d+)", out.stdout).group(1))
-    assert n >= 17, out.stdout  # every module of the slice was imported
-    assert "--device" in out.stdout  # the CLI's --help ran
+    assert n >= 21, out.stdout  # every module of the slices was imported
+    # Both CLIs' --help ran: segment_laughter's, then serve's.
+    assert "--input_audio_file" in out.stdout and "--save_probs" in out.stdout
+    assert "--device" in out.stdout
 
 
 _IMPORT = re.compile(

@@ -113,13 +113,18 @@ def test_input_guards(models, tmp_path):
         pipe.probs_for_file(path)
 
 
-def test_unported_features_are_refused():
-    for kw in (dict(mode="fused_conv"), dict(transfer_codec="packed"),
-               dict(transfer_codec="auto"), dict(precision="bfloat16")):
+def test_unported_features_are_refused(models, monkeypatch):
+    for kw in (dict(transfer_codec="packed"), dict(transfer_codec="auto"),
+               dict(precision="bfloat16")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tinf.InferenceSettings(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tinf.StreamingSession(None)
+    from laughter_detection_icsi_tpu_torch.parallel import sharded_inference as tsi
+
+    # Inside a process group of two ranks: the mesh is ROADMAP item 7.
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tsi.ShardedPipeline(models[3], device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
         tinf.InferenceSettings(mode="dilated")
     with pytest.raises(ValueError, match="chunk must be >= 1"):
