@@ -49,9 +49,29 @@ Phases (any failure exits non-zero and prints no result):
    stdin (20 s, a subprocess) emitting every channel's offline events;
    audio-seconds per wall-second, peak memory, the device breakdown; the
    peak memory of 9 channels of 20 s;
-8. the card, one JSON line of the kernels (the fbank kernel at the main
-   path's bucket, launches counted on phase 4's path), then the result
-   line.
+8. corpus sweep — a synthetic ICSI-layout corpus written under
+   build/chip_smoke (preambles and three meetings with laugh, speech,
+   noise and invalid segments at known times; Bmr021 4 x 600 s, one
+   channel 777 samples short, Bns001 3 x 300 s, Bmr013 2 x 30 s in
+   shorten SPHERE; ~56 min of int16 audio) through ``cli/sweep.main``
+   ``--split all --analyse`` on ``cuda`` at the 29 x 3 grid: 87 TextGrids
+   per channel, each equal to the smoothing of an in-process
+   ``ShardedPipeline.probs_for_meeting``; one launch per bucket batch (and
+   per warmed channel count); 87 sum-stats rows with finite precision,
+   read back alike by ``analyse``; no pandas or lxml loaded.  Then the
+   sweep with ``--transfer_codec packed`` (the same TextGrids; on two
+   packed-decoded [4, bucket] batches, Bmr021's first and one of
+   close-talk-like audio that must pack to <= 0.9 of raw, the
+   probabilities bit-equal to raw and the kernel held against its plain
+   version; the wire ratio and the pack, upload and decode times) and with
+   ``--mode fused_conv`` (one launch per meeting); the swept hours,
+   audio-s per wall-s end to end and inference only (best of 2), the
+   shorten decode's and the TextGrid writes' shares of the wall, the rate
+   expected on an all-shorten corpus from the measured decode rate, peak
+   memory and one meeting's device breakdown;
+9. the card, one JSON line of the kernels (the fbank kernel at the main
+   path's bucket; ``launches`` counted on phase 8's sweep, the launches of
+   every path beside them), then the result line.
 
 The script imports neither JAX nor the JAX package.
 """
@@ -101,6 +121,22 @@ def speechlike(n: int, seed: int) -> np.ndarray:
     env = 0.05 + 0.6 * np.sin(2 * np.pi * 0.7 * t) ** 2
     tone = np.sin(2 * np.pi * (200 + 300 * np.sin(2 * np.pi * 0.3 * t)) * t)
     w = 0.3 * r.standard_normal(n) * env + 0.3 * tone * (np.sin(2 * np.pi * 1.3 * t) > 0)
+    return (np.clip(w, -1, 1) * 32767).astype(np.int16)
+
+
+def closetalk(n: int, seed: int) -> np.ndarray:
+    """Int16 audio shaped like a close-talk channel: room noise near
+    silence, and 40% of the time voiced bursts (a 110-170 Hz pitch with
+    harmonics falling as 1/k^2) at a syllable rate: spectrally tilted, so
+    its first-order deltas are several bits narrower than its samples, as
+    speech's are (``speechlike``'s noise packs larger than raw)."""
+    r = np.random.default_rng(seed)
+    t = np.arange(n) / 16000
+    phase = 2 * np.pi * np.cumsum(140 + 30 * np.sin(2 * np.pi * 0.4 * t)) / 16000
+    voiced = sum(np.sin(k * phase) / k**2 for k in range(1, 9))
+    talking = np.sin(2 * np.pi * 0.1 * t + r.uniform(0, 2 * np.pi)) > 0.3
+    syllables = np.sin(2 * np.pi * 3 * t + r.uniform(0, 2 * np.pi)) ** 2
+    w = 0.25 * talking * syllables * voiced + 0.001 * r.standard_normal(n)
     return (np.clip(w, -1, 1) * 32767).astype(np.int16)
 
 
@@ -745,6 +781,353 @@ def phase_multichannel(card, work: Path, ctx: dict) -> int:
     return launches
 
 
+#: The corpus phase 8 sweeps: (meeting, channels, seconds, encoding); 56 min
+#: of audio.  Bmr021 and Bns001 are the dev split, Bmr013 is in test.
+SWEEP_CORPUS = (("Bmr021", 4, 600, "pcm"), ("Bns001", 3, 300, "pcm"), ("Bmr013", 2, 30, "shorten"))
+
+
+def write_sweep_corpus(root: Path):
+    """An ICSI-layout corpus under ``root``: ``transcripts/preambles.mrt``
+    and one ``<meeting>.mrt`` each, whose participants have, every 20 s, a
+    pure laugh, speech, a noise, a laugh next to speech (invalid) and a
+    0.1 s laugh (too short: invalid); ``audio/<meeting>/chanN.sph`` int16
+    audio, one Bmr021 channel 777 samples short.  Returns (transcript dir,
+    audio dir, {meeting: [paths]})."""
+    from laughter_detection_icsi_tpu_torch.data import audio
+
+    tdir, adir = root / "transcripts", root / "audio"
+    tdir.mkdir(parents=True)
+    seg = lambda p, a, b, body: (
+        f'    <Segment StartTime="{a}" EndTime="{b}" Participant="{p}">{body}</Segment>')
+    preambles, paths = [], {}
+    for m, n_ch, secs, encoding in SWEEP_CORPUS:
+        parts = [f"me{m[-3:]}{c}" for c in range(n_ch)]
+        preambles.append(
+            f'  <Meeting Session="{m}"><Preamble><Participants>'
+            + "".join(f'<Participant Name="{p}" Channel="chan{c}"/>' for c, p in enumerate(parts))
+            + "</Participants></Preamble></Meeting>")
+        segs = []
+        for c, p in enumerate(parts):
+            for t in range(5 + 3 * c, secs - 14, 20):
+                segs += [seg(p, t, t + 1.5, '\n      <VocalSound Description="laugh"/>\n    '),
+                         seg(p, t + 2, t + 6, "words and more words"),
+                         seg(p, t + 7, t + 8, '<NonVocalSound Description="door"/>'),
+                         seg(p, t + 9, t + 10, '<VocalSound Description="laugh"/> ha'),
+                         seg(p, t + 11, t + 11.1, '<VocalSound Description="laugh"/>')]
+        (tdir / f"{m}.mrt").write_text(
+            f'<?xml version="1.0" encoding="UTF-8"?>\n<Meeting Session="{m}">\n'
+            f'  <Transcript StartTime="0.0" EndTime="{secs}.0">\n' + "\n".join(segs)
+            + "\n  </Transcript>\n</Meeting>\n")
+        (adir / m).mkdir(parents=True)
+        write = audio.write_sphere_shorten if encoding == "shorten" else audio.write_sphere
+        paths[m] = []
+        for c in range(n_ch):
+            n = 16000 * secs - (777 if (m, c) == ("Bmr021", 3) else 0)
+            paths[m].append(str(adir / m / f"chan{c}.sph"))
+            write(paths[m][-1], speechlike(n, seed=100 + 10 * len(paths) + c), 16000)
+    (tdir / "preambles.mrt").write_text(
+        '<?xml version="1.0" encoding="UTF-8"?>\n<Preambles>\n' + "\n".join(preambles)
+        + "\n</Preambles>\n")
+    return tdir, adir, paths
+
+
+class HostSpans:
+    """Host-clock spans of the calls to functions wrapped in place, by
+    name; ``restore`` puts the functions back."""
+
+    def __init__(self):
+        self.spans, self._saved = {}, []
+
+    def wrap(self, module, name: str) -> None:
+        fn = getattr(module, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:  # list.append is atomic: safe from the decode threads
+                self.spans.setdefault(name, []).append((t0, time.perf_counter()))
+
+        self._saved.append((module, name, fn))
+        setattr(module, name, timed)
+
+    def restore(self) -> None:
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+    def covered(self, name: str) -> float:
+        """Seconds of the wall that at least one call of ``name`` covers
+        (calls from a thread pool overlap)."""
+        total, end = 0.0, -math.inf
+        for a, b in sorted(self.spans.get(name, [])):
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total
+
+
+def rows_equal(a, b) -> bool:
+    nan = lambda v: isinstance(v, float) and math.isnan(v)
+    return len(a) == len(b) and all(
+        all(x == y or (nan(x) and nan(y)) for x, y in zip(ra, rb)) for ra, rb in zip(a, b))
+
+
+def phase_sweep(card, work: Path, ctx: dict) -> dict:
+    """The corpus sweep through cli/sweep.py (raw twice, packed, fused_conv);
+    returns the launches of each run and the kernel's largest error on the
+    packed-decoded batch."""
+    import contextlib
+    import io
+
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep, inference
+    from laughter_detection_icsi_tpu_torch.cli import sweep
+    from laughter_detection_icsi_tpu_torch.config import parse_float_list
+    from laughter_detection_icsi_tpu_torch.data import audio, shorten
+    from laughter_detection_icsi_tpu_torch.eval import analyse as an
+    from laughter_detection_icsi_tpu_torch.eval import textgrid
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, smoothing
+    from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline
+
+    t0 = time.perf_counter()
+    tdir, adir, paths = write_sweep_corpus(work / "corpus")
+    metas = {m: [audio.info(p) for p in ps] for m, ps in paths.items()}
+    audio_s = sum(i.duration for ms in metas.values() for i in ms)
+    n_chans = sum(len(ps) for ps in paths.values())
+    print(f"corpus: {len(paths)} meetings, {n_chans} channels, {audio_s:.3f} audio-s "
+          f"({audio_s / 60:.2f} min), written in {time.perf_counter() - t0:.1f} s")
+    thresholds = parse_float_list(sweep.DEFAULT_THRESHOLDS)
+    min_lengths = parse_float_list(sweep.DEFAULT_MIN_LENGTHS)
+    grid = len(thresholds) * len(min_lengths)
+    settings = inference.settings_from_flags(device="cuda")
+    n_batches = {m: -(-max(host_prep.num_frames(i.num_samples) for i in ms) // settings.bucket_frames)
+                 for m, ms in metas.items()}
+    n_warm = len({len(ps) for ps in paths.values()})  # one warm-up per channel count
+    spans = HostSpans()
+    spans.wrap(shorten, "decode_file")
+    spans.wrap(textgrid, "write_textgrid")
+
+    def run(name: str, *flags) -> dict:
+        out = work / f"sweep_{name}"
+        spans.spans.clear()
+        audio._SHORTEN_CACHE.clear()  # every run decodes the shorten files anew
+        text = io.StringIO()
+        torch.cuda.reset_peak_memory_stats()
+        fbank_cuda.launches = 0
+        with contextlib.redirect_stdout(text):
+            rc = sweep.main(["--audio_dir", str(adir), "--transcript_dir", str(tdir),
+                             "--output_dir", str(out), "--split", "all", "--analyse",
+                             "--model_path", ctx["ckpt"], "--device", "cuda", *flags])
+        torch.cuda.synchronize()
+        launches = fbank_cuda.launches
+        check(rc == 0, f"sweep {name} returned {rc}")
+        text = text.getvalue()
+        got = re.search(r"swept ([\d.]+) h of audio \(([\d.]+) audio-s\) in ([\d.]+) s: "
+                        r"([\d.]+) audio-s per wall-s end to end, ([\d.]+) inference only", text)
+        check(got is not None, f"sweep {name}: no summary line in {text[-500:]}")
+        wall = float(got[3])
+        res = dict(out=out / "all", launches=launches, hours=float(got[1]), wall=wall,
+                   e2e=float(got[4]), inference=float(got[5]),
+                   peak=torch.cuda.max_memory_allocated(),
+                   decode_s=spans.covered("decode_file"), n_decodes=len(spans.spans.get("decode_file", [])),
+                   tg_s=spans.covered("write_textgrid"), n_tg=len(spans.spans.get("write_textgrid", [])))
+        report = [line for line in text.splitlines() if line.startswith(("swept", "best F1", "AP("))]
+        print(f"sweep {name} ({' '.join(flags) or 'raw'}): {launches} fbank launches; "
+              + "; ".join(report))
+        return res
+
+    try:
+        raw = run("raw")
+        # One launch per bucket batch of every meeting, and one per channel
+        # count warmed before the clock starts.
+        want = n_warm + sum(n_batches.values())
+        check(raw["launches"] == want, f"sweep: {raw['launches']} fbank launches for "
+              f"{sum(n_batches.values())} bucket batches {n_batches} + {n_warm} warm-ups")
+        spipe = ShardedPipeline(ctx["model"], settings=settings, device="cuda")
+        for m, ps in paths.items():
+            probs, durations = spipe.probs_for_meeting(ps)
+            for c, (p, dur) in enumerate(zip(probs, durations)):
+                check_probs(p, (host_prep.num_frames(metas[m][c].num_samples),), f"sweep {m}/chan{c}")
+                want_inst = smoothing.instances_from_device_probs(
+                    torch.from_numpy(p).cuda(), thresholds, min_lengths, fps=len(p) / dur)
+                grids = sorted(raw["out"].glob(f"{m}/t_*/l_*/chan{c}.TextGrid"))
+                check(len(grids) == grid, f"{m}/chan{c}: {len(grids)} TextGrids, not {grid}")
+                for (thr, ml), inst in want_inst.items():
+                    g = raw["out"] / m / f"t_{thr}" / f"l_{ml}" / f"chan{c}.TextGrid"
+                    check(textgrid.read_laughter_intervals(str(g)) == inst,
+                          f"{g}: TextGrid differs from the smoothing of probs_for_meeting")
+        print(f"sweep: {grid} TextGrids per channel x {n_chans} channels, each equal to the "
+              f"smoothing of ShardedPipeline.probs_for_meeting; fbank launched {raw['launches']} "
+              f"times = {sum(n_batches.values())} bucket batches {n_batches} + {n_warm} warm-ups")
+        rows = an.read_csv(raw["out"].parent / "all_sum_stats.csv", an.SumStats)
+        check(len(rows) == grid and all(math.isfinite(r.precision) for r in rows),
+              f"sum stats: {len(rows)} rows, finite precision {all(math.isfinite(r.precision) for r in rows)}")
+        evals = an.read_csv(raw["out"].parent / "all_eval_df_per_meeting.csv", an.EvalRow)
+        check(len(evals) == grid * len(paths), f"{len(evals)} evaluation rows")
+        with contextlib.redirect_stdout(io.StringIO()):  # a progress line per directory
+            fresh = an.analyse(str(raw["out"]), transcript_dir=str(tdir), force=True)
+            cached = an.analyse(str(raw["out"]), transcript_dir=str(tdir))
+        check(rows_equal(fresh, rows) and rows_equal(cached, rows),
+              "analyse: a recomputation or the cached read differs from the sweep's sum stats")
+        best = max((r for r in rows if not math.isnan(r.f1)), key=lambda r: r.f1)
+        print(f"sum stats: {len(rows)} rows, precision finite; {len(evals)} per-meeting rows; "
+              f"analyse(force=True) and analyse(force=False) give the same rows; best F1 "
+              f"{best.f1:.4f} at threshold {best.threshold}, min_len {best.min_len} "
+              f"(recall {best.recall:.4f})")
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("pandas", "lxml"))
+        check(not loaded, f"the sweep loaded {loaded}")
+        print("pandas and lxml are not loaded")
+
+        again = run("raw_again")
+        best_e2e = max(raw["e2e"], again["e2e"])
+        best_inf = max(raw["inference"], again["inference"])
+        print(f"sweep on {card}: {raw['hours']:.4f} h of audio; end to end (the sweep loop: "
+              f"decode, inference, smoothing, TextGrids) {raw['e2e']:.2f}, {again['e2e']:.2f} "
+              f"audio-s per wall-s (best of 2: {best_e2e:.2f}); inference only {raw['inference']:.2f}, "
+              f"{again['inference']:.2f} (best {best_inf:.2f}); peak device memory "
+              f"{raw['peak'] / 2**30:.3f} / {again['peak'] / 2**30:.3f} GiB")
+        shorten_s = sum(i.duration for i in metas["Bmr013"])
+        for r, name in ((raw, "first"), (again, "second")):
+            print(f"  {name} run, host shares of the loop's {r['wall']:.3f} s: shorten decode "
+                  f"{r['decode_s']:.3f} s = {100 * r['decode_s'] / r['wall']:.1f}% "
+                  f"({r['n_decodes']} files, {shorten_s:.0f} audio-s); "
+                  f"TextGrid writes {r['tg_s']:.3f} s = {100 * r['tg_s'] / r['wall']:.1f}% "
+                  f"({r['n_tg']} files)")
+            # All of ICSI is shorten: the same loop with every channel
+            # decoded at this run's decode rate (audio-s per second of wall
+            # that a decode covers), the rest of the loop as measured.
+            rate = shorten_s / r["decode_s"]
+            est = audio_s / (r["wall"] - r["decode_s"] + audio_s / rate)
+            print(f"  expected on an all-shorten corpus of the same {audio_s:.0f} audio-s: "
+                  f"{est:.2f} audio-s per wall-s end to end (decode at {rate:.3f} audio-s per "
+                  f"decode-s, {audio_s / rate:.1f} s of decode)")
+
+        packed = run("packed", "--transfer_codec", "packed")
+        check(packed["launches"] == raw["launches"], f"packed sweep: {packed['launches']} launches")
+        a = sorted(p.relative_to(raw["out"]) for p in raw["out"].rglob("*.TextGrid"))
+        b = sorted(p.relative_to(packed["out"]) for p in packed["out"].rglob("*.TextGrid"))
+        check(a == b and all((raw["out"] / p).read_bytes() == (packed["out"] / p).read_bytes()
+                             for p in a), "the packed sweep's TextGrids differ from raw")
+        print(f"packed sweep: its {len(a)} TextGrids equal raw's byte for byte; {packed['e2e']:.2f} "
+              f"audio-s per wall-s end to end, {packed['inference']:.2f} inference only")
+        max_err = packed_bucket(card, spipe, ctx, paths["Bmr021"])
+
+        fused = run("fused_conv", "--mode", "fused_conv")
+        check(fused["launches"] == n_warm + len(paths),
+              f"fused_conv sweep: {fused['launches']} launches for {len(paths)} meetings + {n_warm} warm-ups")
+        for m, ps in paths.items():
+            for c in range(len(ps)):
+                n = len(list(fused["out"].glob(f"{m}/t_*/l_*/chan{c}.TextGrid")))
+                check(n == grid, f"fused_conv {m}/chan{c}: {n} TextGrids")
+        print(f"fused_conv sweep: {fused['launches']} launches ({len(paths)} meetings + {n_warm} "
+              f"warm-ups); {fused['e2e']:.2f} audio-s per wall-s end to end, "
+              f"{fused['inference']:.2f} inference only; peak {fused['peak'] / 2**30:.3f} GiB")
+    finally:
+        spans.restore()
+
+    ps = paths["Bns001"]
+    took = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        spipe.probs_for_meeting(ps)
+        took.append(time.perf_counter() - t0)
+    device_breakdown(f"probs_for_meeting (Bns001, {len(ps)} x {SWEEP_CORPUS[1][2]} s)",
+                     lambda: spipe.probs_for_meeting(ps), min(took), work / "sweep.trace.json")
+    return dict(launches=raw["launches"], packed=packed["launches"], fused=fused["launches"],
+                max_err=max_err)
+
+
+def packed_bucket(card, spipe, ctx, paths) -> float:
+    """The packed codec on two [C, bucket] batches: a meeting's first
+    bucket batch (``speechlike`` audio, whose wire is larger than raw) and
+    one of ``closetalk`` channels, which must pack below 0.9 of raw (what
+    'auto' asks).  For each: the probabilities bit-equal to raw, the
+    decoded wave equal to the raw upload, the kernel within TOL of its
+    plain version on it; the wire ratio and the pack, upload and decode
+    times.  Returns the kernel's largest error."""
+    from laughter_detection_icsi_tpu_torch import host_prep, inference
+    from laughter_detection_icsi_tpu_torch.data import audio
+    from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline
+
+    ppipe = ShardedPipeline(ctx["model"], device="cuda", settings=inference.settings_from_flags(
+        device="cuda", transfer_codec="packed"))
+    padded, ts = zip(*(host_prep.host_pad_waveform(audio.read_int16(p)[0]) for p in paths))
+    meeting, valid, _ = next(spipe.bucket_batches(padded, ts, int16_in=True))
+    talk = np.stack([closetalk(spipe.wave_len, seed=200 + c) for c in range(len(paths))])
+    return max(packed_batch(card, spipe, ppipe, what, batch, valid)
+               for what, batch in (("Bmr021's first", meeting), ("close-talk", talk)))
+
+
+def packed_batch(card, spipe, ppipe, what: str, batch, valid) -> float:
+    """One bucket batch through the packed codec (see ``packed_bucket``);
+    returns the kernel's largest error on the decoded batch."""
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep, inference
+    from laughter_detection_icsi_tpu_torch.config import FEAT
+    from laughter_detection_icsi_tpu_torch.ops import fbank as fbank_ops
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, pcm_pack
+
+    check(torch.equal(spipe._bucket_probs_batch(batch, valid), ppipe._bucket_probs_batch(batch, valid)),
+          f"{what} packed bucket batch's probabilities differ from raw")
+    pack_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        wires, deltas = ppipe._maybe_pack(batch)
+        pack_s.append(time.perf_counter() - t0)
+    ratio = wires.nbytes / batch.nbytes
+    if what == "close-talk":
+        check(ratio <= 0.9, f"the close-talk batch packs to {ratio:.4f} of raw, not <= 0.9")
+    n, nb = batch.shape[1], pcm_pack.block_count(batch.shape[1])
+    dev = spipe.device
+    snip = host_prep.snip_cfg(FEAT)
+    with torch.inference_mode(), inference.strict_fp32():
+        wave = inference.upload_packed(wires, n, deltas, dev)
+        check(torch.equal(wave, inference.upload_wave(batch, dev)),
+              f"the packed-decoded {what} batch differs from the raw upload")
+        got, want = fbank_cuda.fbank_cuda(wave, snip), fbank_ops.fbank(wave, snip)
+        torch.cuda.synchronize()
+        try:
+            torch.testing.assert_close(got, want, **TOL)
+        except AssertionError as e:
+            raise PhaseError(f"kernel on the packed-decoded {what} batch disagrees with the plain "
+                             f"version: {e}")
+        err = (got - want).abs().max().item()
+        up = {}
+        for kind, host in (("raw int16", torch.from_numpy(batch)), ("packed wire", pcm_pack.wire_tensor(wires))):
+            best = math.inf
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                host.to(dev)
+                torch.cuda.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            up[kind] = best
+        dev_wire = pcm_pack.widen(pcm_pack.wire_tensor(wires).to(dev))
+        decode = lambda: [pcm_pack.unpack_pcm(words, widths, n, d) for (widths, words), d
+                          in zip((pcm_pack.split_wire(r, nb) for r in dev_wire), deltas)]
+        # ~30 launches a row: time a few calls, or the launch queue fills
+        # while the device waits and the host cannot queue ahead of it.
+        decode_ms = cuda_ms(decode, iters=3)
+        decode_host = math.inf
+        for _ in range(5):
+            t0 = time.perf_counter()
+            decode()
+            torch.cuda.synchronize()
+            decode_host = min(decode_host, time.perf_counter() - t0)
+    print(f"packed [{batch.shape[0]}, {n}] {what} bucket batch on {card}: probabilities bit-equal "
+          f"to raw; the decoded wave equals the raw upload; kernel vs plain max |diff| {err:.3e} "
+          f"(atol {TOL['atol']}, rtol {TOL['rtol']})")
+    print(f"  wire {wires.nbytes} B for {batch.nbytes} B raw = {ratio:.4f} (rows in delta mode: "
+          f"{sum(deltas)} of {len(deltas)}); numpy pack {1e3 * min(pack_s):.2f} ms (host, best of 3, "
+          f"{batch.shape[0]} rows in threads); upload raw {1e3 * up['raw int16']:.3f} ms vs wire "
+          f"{1e3 * up['packed wire']:.3f} ms (host clock, pageable, best of 5); decode "
+          f"{decode_ms:.3f} ms on the device (CUDA events), {1e3 * decode_host:.3f} ms on the host "
+          f"clock (launch-bound; best of 5)")
+    return err
+
+
 def device_breakdown(what: str, fn, best_s: float, trace_path: Path) -> None:
     """Profile one call of ``fn`` (torch.profiler) and print where its device
     time goes: the busy share of the call's wall time, the kernels with the
@@ -819,6 +1202,8 @@ def main() -> int:
         streamed = phase_streaming(card, work, ctx)
         print("== 7. multichannel ==")
         batched = phase_multichannel(card, work, ctx)
+        print("== 8. corpus sweep ==")
+        swept = phase_sweep(card, work, ctx)
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -827,12 +1212,17 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    by_path = {"windows": ctx["launches"], "fused_conv": fused, "serve": streamed,
+               "multichannel": batched, "sweep": swept["launches"],
+               "sweep_packed": swept["packed"], "sweep_fused_conv": swept["fused"]}
     print(f"fbank launches per path: windows {ctx['launches']} ({ctx['n_buckets']} buckets), "
           f"fused_conv {fused} (one file), serve replay {streamed} ({ctx['n_buckets']} buckets "
-          f"+ warm-up), multichannel {batched} (bucket batches of 4 channels)")
+          f"+ warm-up), multichannel {batched} (bucket batches of 4 channels), corpus sweep "
+          f"{swept['launches']} (raw), {swept['packed']} (packed), {swept['fused']} (fused_conv)")
+    entry["max_abs_err"] = max(entry["max_abs_err"], swept["max_err"])
     entry = {"name": entry.pop("name"), "route": entry.pop("route"),
              "source": entry.pop("source"), "replaces": entry.pop("replaces"),
-             "launches": ctx["launches"], **entry}
+             "launches": swept["launches"], **entry, "launches_by_path": by_path}
     print(card)
     print(json.dumps({"kernels": [entry]}))
     print(json.dumps({"ok": True, "device": {

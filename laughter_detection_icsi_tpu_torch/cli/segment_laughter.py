@@ -9,9 +9,11 @@ The same flags as the JAX package's ``cli/segment_laughter.py``, plus
         --output_dir out --save_to_textgrid True --device cuda
 
 ``--mode fused_conv`` runs the conv stack once over the whole track
-(models/fully_conv.py).  Options the JAX CLI has but this port does not
-carry yet (``--transfer_codec auto|packed``, ``--precision bfloat16``)
-parse, then fail with an error naming the ROADMAP item that ports them.
+(models/fully_conv.py).  ``--transfer_codec packed|auto`` ships int16
+buckets as a bit-packed wire decoded on the device (ops/pcm_pack.py;
+windows mode).  ``--precision bfloat16``, which this port does not carry
+yet, parses, then fails with an error naming the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
@@ -65,7 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "track (faster, not checkpoint parity)")
     p.add_argument("--transfer_codec", type=str, default="raw",
                    choices=["raw", "auto", "packed"],
-                   help="host->device PCM transfer ('raw' only for now)")
+                   help="host->device PCM transfer: 'packed'/'auto' = "
+                        "lossless bit-packed wire decoded on the device "
+                        "(windows mode), 'raw' = plain int16 upload")
     p.add_argument("--random_init", action="store_true",
                    help="skip checkpoint loading (seeded initial weights; "
                         "smoke tests/benchmarks)")

@@ -6,7 +6,9 @@ fixed-size bucket of frames:
 
 1. the bucket's slice of the host-padded PCM (Kaldi snip_edges=False
    reflection padding, host_prep.py) is uploaded once — 16-bit sources as
-   int16, scaled by 1/32768 on the device;
+   int16, scaled by 1/32768 on the device; with ``transfer_codec`` 'packed'
+   or 'auto' as one bit-packed wire (ops/pcm_pack.py), decoded on the
+   device to the same int16 values;
 2. the fbank kernel (ops/fbank_cuda.py) featurizes the bucket plus a
    ``window - 1`` frame halo, so buckets are independent and exact;
    frames at or past the true frame count are zeroed (the reference
@@ -33,6 +35,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
+import warnings
+import weakref
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -43,7 +48,7 @@ from laughter_detection_icsi_tpu_torch import host_prep
 from laughter_detection_icsi_tpu_torch.config import FEAT, FeatConfig
 from laughter_detection_icsi_tpu_torch.data import audio as audio_io
 from laughter_detection_icsi_tpu_torch.models import fully_conv, shared_stem
-from laughter_detection_icsi_tpu_torch.ops import smoothing, windows
+from laughter_detection_icsi_tpu_torch.ops import pcm_pack, smoothing, windows
 from laughter_detection_icsi_tpu_torch.ops.fbank_cuda import fbank_cuda
 
 
@@ -63,7 +68,10 @@ class InferenceSettings:
     # Ship 16-bit PCM to the device as int16 and scale by 1/32768 there:
     # identical numbers at half the host->device bytes.
     transfer_int16: bool = True
-    transfer_codec: str = "raw"  # 'auto' / 'packed' are not ported yet
+    # Host->device PCM in windows mode: 'raw' uploads the buffer; 'packed'
+    # uploads int16 buffers as one bit-packed wire (ops/pcm_pack.py),
+    # decoded on the device; 'auto' packs only when that saves >= 10%.
+    transfer_codec: str = "raw"
     # Shared-stem windows mode (models/shared_stem.py): None = on for the
     # ResNet family; False forces the naive window batch.
     shared_stem: Optional[bool] = None
@@ -89,8 +97,6 @@ class InferenceSettings:
                 "mode='fused_conv' (the whole-track graph has no packed "
                 "decode stage); use 'raw', or the 'windows' mode"
             )
-        if self.transfer_codec != "raw":
-            raise _not_ported(f"transfer_codec={self.transfer_codec!r}", 4)
         if self.precision == "bfloat16":
             raise _not_ported("precision='bfloat16'", 6)
 
@@ -157,6 +163,39 @@ def upload_wave(buf: np.ndarray, device: torch.device) -> torch.Tensor:
     if wave.dtype == torch.int16:
         wave = wave.float() * (1.0 / 32768.0)
     return wave
+
+
+def upload_packed(
+    wires: np.ndarray, n: int, deltas: Sequence[bool], device: torch.device
+) -> torch.Tensor:
+    """One upload of a [C, wire_len] batch of bit-packed wires
+    (``PackedPCM.wire()`` rows, zero-padded alike) of ``n`` samples each,
+    decoded on the device row by row, each in its own mode -> float32
+    [C, n], scaled by 1/32768 (the numbers ``upload_wave`` gives for the
+    same int16 rows)."""
+    n_blocks = pcm_pack.block_count(n)
+    dev = pcm_pack.widen(pcm_pack.wire_tensor(wires).to(device))
+    rows = [
+        pcm_pack.unpack_pcm(words, widths, n, delta)
+        for (widths, words), delta in zip((pcm_pack.split_wire(r, n_blocks) for r in dev), deltas)
+    ]
+    return torch.stack(rows).float() * (1.0 / 32768.0)
+
+
+def codec_wants_pack(buf: np.ndarray, codec: str) -> bool:
+    """May ``buf`` go packed under ``codec`` (the JAX package's rules)?
+    Only int16 PCM packs; 'packed' on float input warns and uploads raw."""
+    if codec == "raw":
+        return False
+    if buf.dtype != np.int16:
+        if codec == "packed":
+            warnings.warn(
+                "transfer_codec='packed' needs int16 PCM input; this float "
+                "waveform uploads raw",
+                stacklevel=4,
+            )
+        return False
+    return True
 
 
 def check_pcm(wave: np.ndarray) -> None:
@@ -263,8 +302,51 @@ class LaughterPipeline:
             settings.shared_stem, model.name, settings.window
         )
         self.wave_len = host_prep.bucket_wave_len(settings, feat_cfg)
+        self._pack_pool: Optional[ThreadPoolExecutor] = None  # see _pack_rows
 
     # ------------------------------------------------------------------ #
+
+    def _pack_rows(self, rows: np.ndarray) -> List[pcm_pack.PackedPCM]:
+        """``pack_pcm`` of each row, in the pipeline's thread pool: rows
+        pack independently and numpy's large-array work runs outside the
+        interpreter lock.  The pool lives as long as the pipeline (one per
+        bucket would pay thread start-up on every bucket)."""
+        if self._pack_pool is None:
+            self._pack_pool = ThreadPoolExecutor(max_workers=8, thread_name_prefix="pcm-pack")
+            # Idle workers would otherwise outlive a discarded pipeline.
+            weakref.finalize(self, self._pack_pool.shutdown, wait=False)
+        return list(self._pack_pool.map(pcm_pack.pack_pcm, rows))
+
+    def _maybe_pack(self, buf: np.ndarray) -> Optional[Tuple[np.ndarray, List[bool]]]:
+        """Pack a bucket buffer ([wave_len], or a [C, wave_len] batch) for
+        one upload when the codec settings say so and, under 'auto', the
+        wire saves at least 10% of the raw bytes: (wires [C, wire_len]
+        uint32, rows zero-padded to the longest; each row's delta flag), or
+        None = upload ``buf`` raw.  Each row takes its own smaller mode: the
+        device decodes row by row, so rows need not share one (the JAX
+        package's batched decode forces deltas on every row)."""
+        codec = self.settings.transfer_codec
+        if not codec_wants_pack(buf, codec):
+            return None
+        packs = self._pack_rows(buf.reshape(-1, buf.shape[-1]))
+        wire_len = max(p.packed_bytes for p in packs) // 4
+        if codec == "auto" and len(packs) * wire_len * 4 > 0.9 * buf.nbytes:
+            return None
+        wires = np.zeros((len(packs), wire_len), dtype=np.uint32)
+        for row, p in zip(wires, packs):
+            wire = p.wire()
+            row[: len(wire)] = wire
+        return wires, [p.delta for p in packs]
+
+    def _upload(self, buf: np.ndarray) -> torch.Tensor:
+        """A bucket buffer ([wave_len], or a [C, wave_len] batch) on the
+        device as float32 of its shape: raw, or as one packed upload
+        decoded there (the same numbers)."""
+        packed = self._maybe_pack(buf)
+        if packed is None:
+            return upload_wave(buf, self.device)
+        wires, deltas = packed
+        return upload_packed(wires, buf.shape[-1], deltas, self.device).reshape(buf.shape)
 
     def _bucket_probs(self, buf: np.ndarray, valid: int) -> torch.Tensor:
         """One bucket buffer (``wave_len`` samples, int16 or float32) -> its
@@ -273,7 +355,7 @@ class LaughterPipeline:
         which keeps streaming bit-equal to offline."""
         with torch.inference_mode(), strict_fp32():
             # [bucket + window - 1, F]: the bucket and its halo.
-            feats = fbank_cuda(upload_wave(buf, self.device), host_prep.snip_cfg(self.feat_cfg))
+            feats = fbank_cuda(self._upload(buf), host_prep.snip_cfg(self.feat_cfg))
             return classify_bucket(self.model, feats, valid, self.settings, self.shared_stem)
 
     def bucket_buffers(self, padded: np.ndarray, t: int):

@@ -1,1 +1,2 @@
-"""Device ops: the fbank featurizer and its CUDA kernel, windows, smoothing."""
+"""Device ops: the fbank featurizer and its CUDA kernel, windows, smoothing,
+the packed-PCM wire codec."""

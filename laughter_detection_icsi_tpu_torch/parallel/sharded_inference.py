@@ -9,7 +9,9 @@ padded.  Per bucket, one fbank kernel launch featurizes every channel's
 single-channel pipeline runs its bucket (``inference.classify_bucket``, the
 JAX package's per-channel loop), so a row equals that channel run alone.
 A meeting's channels share a length, so a meeting is one batch; ragged
-batches mask each channel's frames past its own count.
+batches mask each channel's frames past its own count.  Under the packed
+codec a bucket batch goes up as one [C, wire_len] upload of bit-packed
+rows, each decoded on the device (``LaughterPipeline._upload``).
 
 A mesh over several processes (``torch.distributed``) is ROADMAP item 7;
 building a pipeline inside a process group of more than one rank raises.
@@ -35,7 +37,6 @@ from laughter_detection_icsi_tpu_torch.inference import (
     int16_transfer_eligible,
     strict_fp32,
     track_wave_len,
-    upload_wave,
 )
 from laughter_detection_icsi_tpu_torch.ops.fbank_cuda import fbank_cuda
 
@@ -143,7 +144,7 @@ class ShardedPipeline(LaughterPipeline):
         (``classify_bucket``, at the same chunk), so a row equals that
         channel run alone, and the activations live are one channel's."""
         with torch.inference_mode(), strict_fp32():
-            feats = fbank_cuda(upload_wave(batch, self.device), host_prep.snip_cfg(self.feat_cfg))
+            feats = fbank_cuda(self._upload(batch), host_prep.snip_cfg(self.feat_cfg))
             return torch.stack([
                 classify_bucket(self.model, f, int(v), self.settings, self.shared_stem)
                 for f, v in zip(feats, valid)

@@ -1,5 +1,5 @@
-"""The port on the card: the fbank kernel against its plain version, and
-the pipeline's launch count.  Marked ``cuda``; each test skips without a
+"""The port on the card: the fbank kernel against its plain version, the
+pipeline's launch count, and the packed codec's device decoder.  Marked ``cuda``; each test skips without a
 card.  This file imports neither JAX nor the JAX package, so it runs on a
 machine without them:
 
@@ -163,3 +163,38 @@ def test_streaming_equals_offline(card):
     outs = [sess.feed(wave[lo : lo + 4000]) for lo in range(0, len(wave), 4000)]
     got = np.concatenate(outs + [sess.finish()])
     np.testing.assert_array_equal(got, pipe.probs_for_waveform(wave))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["auto", "delta"])
+def test_unpack_pcm_on_the_card(card, mode):
+    # Speech-like deltas, full-scale alternation (17-bit deltas) and silent
+    # blocks: the decoder on the card gives the packed int16 values.
+    from laughter_detection_icsi_tpu_torch.ops import pcm_pack
+
+    x = (_wave(999_120, seed=8) * 32767 / 3).astype(np.int16)
+    x[40_000:44_096] = np.where(np.arange(4096) % 2, 32767, -32768)
+    x[100_000:200_000] = 0
+    packed = pcm_pack.pack_pcm(x, mode=mode)
+    wire = pcm_pack.widen(pcm_pack.wire_tensor(packed.wire()).to(card))
+    widths, words = pcm_pack.split_wire(wire, len(packed.widths))
+    got = pcm_pack.unpack_pcm(words, widths, packed.n, packed.delta)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy(), x)
+
+
+@pytest.mark.cuda
+def test_packed_codec_equals_raw(card):
+    from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline
+
+    model = _small_model()  # one set of weights for both codecs
+    wave = (_wave(16000 * 6 + 777, seed=9) * 32767 / 4).astype(np.int16)
+    for cls, run in ((inference.LaughterPipeline, lambda p: [p.probs_for_waveform(wave)]),
+                     (ShardedPipeline, lambda p: p.probs_for_waveforms([wave, wave[:50_000]]))):
+        raw, packed = (
+            run(cls(model, settings=inference.InferenceSettings(
+                chunk=128, bucket_frames=256, transfer_codec=codec)))
+            for codec in ("raw", "packed")
+        )
+        for a, b in zip(raw, packed):
+            np.testing.assert_array_equal(a, b)

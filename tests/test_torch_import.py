@@ -1,6 +1,7 @@
 """Import contract of the PyTorch port: it (and chip_smoke.py) imports
-neither JAX nor the JAX package, checked in a fresh interpreter (this test
-process has JAX loaded by conftest) and by reading the sources."""
+neither JAX nor the JAX package, nor pandas or lxml (the card's machine has
+neither), checked in a fresh interpreter (this test process has JAX loaded
+by conftest) and by reading the sources."""
 
 import re
 import subprocess
@@ -17,15 +18,15 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_probe")  # defines, runs nothing
-from laughter_detection_icsi_tpu_torch.cli import segment_laughter, serve
-for cli in (segment_laughter, serve):
+from laughter_detection_icsi_tpu_torch.cli import analyse, segment_laughter, serve, sweep
+for cli in (segment_laughter, serve, sweep, analyse):
     try:
         cli.main(["--help"])
     except SystemExit as e:
         assert e.code == 0, e.code
+FORBIDDEN = ("jax", "laughter_detection_icsi_tpu", "pandas", "lxml")
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "laughter_detection_icsi_tpu")
-             or m.startswith(("jax.", "laughter_detection_icsi_tpu.")))
+             if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN)))
 print("MODULES", len(names))
 print("BAD", bad)
 """
@@ -39,22 +40,23 @@ def test_port_never_imports_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(re.search(r"MODULES (\d+)", out.stdout).group(1))
-    assert n >= 21, out.stdout  # every module of the slices was imported
-    # Both CLIs' --help ran: segment_laughter's, then serve's.
+    assert n >= 34, out.stdout  # every module of the slices was imported
+    # Every CLI's --help ran: segment_laughter's, serve's, sweep's, analyse's.
     assert "--input_audio_file" in out.stdout and "--save_probs" in out.stdout
+    assert "--transfer_codec" in out.stdout and "--min_length_sweep" in out.stdout
     assert "--device" in out.stdout
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|laughter_detection_icsi_tpu)\b"
-    r"|import_module\(\s*['\"](?:jax|laughter_detection_icsi_tpu)\b",
+    r"^\s*(?:import|from)\s+(?:jax|laughter_detection_icsi_tpu|pandas|lxml)\b"
+    r"|import_module\(\s*['\"](?:jax|laughter_detection_icsi_tpu|pandas|lxml)\b",
     re.MULTILINE,
 )
 
 
 def test_sources_name_no_jax_import():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 17
+    assert len(files) > 27
     offenders = [str(f.relative_to(REPO)) for f in files if _IMPORT.search(f.read_text())]
     assert offenders == []
 
@@ -63,5 +65,8 @@ def test_pattern_catches_what_it_should():
     assert _IMPORT.search("import jax.numpy as jnp")
     assert _IMPORT.search("    from laughter_detection_icsi_tpu.ops import fbank")
     assert _IMPORT.search("importlib.import_module('jax')")
+    assert _IMPORT.search("import pandas as pd")
+    assert _IMPORT.search("    from lxml import etree")
+    assert not _IMPORT.search("import pandasql")
     assert not _IMPORT.search("from laughter_detection_icsi_tpu_torch.ops import fbank")
     assert not _IMPORT.search("import jaxtyping")
