@@ -18,10 +18,13 @@ Phases (any failure exits non-zero and prints no result):
    silent stretch at the energy floor, 3 whole blocks of frames and one
    frame more among them), a [3, n] batch and a [4, bucket] multichannel
    bucket batch equal to each channel alone, and fused_conv's whole-track
-   shape (18,432 frames for 150 s); the kernel's, the plain version's and
-   one cuBLAS matmul's times at the main-path bucket and at the whole
-   track, beside the 3xTF32 tensor-core bound (the JSON line's
-   ``bound_ms``, at the bucket) and the fp32 CUDA-core one (printed only);
+   shape (18,432 frames for 150 s); on a tone, where the mel bins span
+   ~17 nats and no fp32 path meets that tolerance, the kernel within 1.5x
+   JAX ``fbank_jit``'s own error of float64 truth (computed on the card);
+   the kernel's, the plain version's and one cuBLAS matmul's times at the
+   main-path bucket and at the whole track, beside the 3xTF32 tensor-core
+   bound (the JSON line's ``bound_ms``, at the bucket) and the fp32
+   CUDA-core one (printed only);
 4. main path — full-width ``resnet_base`` ResNetBigger (numpy-seeded
    weights in a ``.ckpt.npz``) segments ~150 s of synthetic int16 audio
    through the port's CLI on ``cuda``; the kernel must launch once per
@@ -50,26 +53,45 @@ Phases (any failure exits non-zero and prints no result):
    audio-seconds per wall-second, peak memory, the device breakdown; the
    peak memory of 9 channels of 20 s;
 8. corpus sweep — a synthetic ICSI-layout corpus written under
-   build/chip_smoke (preambles and three meetings with laugh, speech,
+   build/chip_smoke (preambles and four meetings with laugh, speech,
    noise and invalid segments at known times; Bmr021 4 x 600 s, one
-   channel 777 samples short, Bns001 3 x 300 s, Bmr013 2 x 30 s in
-   shorten SPHERE; ~56 min of int16 audio) through ``cli/sweep.main``
+   channel 777 samples short, Bns001 3 x 300 s, Bmr013 2 x 30 s and
+   Bro012 4 x 200 s in shorten SPHERE, ICSI's own encoding, Bro012's
+   channels encoded in parallel processes and kept in
+   build/chip_smoke/cache; ~70 min of int16 audio) through ``cli/sweep.main``
    ``--split all --analyse`` on ``cuda`` at the 29 x 3 grid: 87 TextGrids
    per channel, each equal to the smoothing of an in-process
    ``ShardedPipeline.probs_for_meeting``; one launch per bucket batch (and
    per warmed channel count); 87 sum-stats rows with finite precision,
-   read back alike by ``analyse``; no pandas or lxml loaded.  Then the
+   read back alike by ``analyse``; no pandas or lxml loaded; every
+   shorten channel decoded by the native C++ decoder (runtime/native.py),
+   none by the numpy one.  Then the
    sweep with ``--transfer_codec packed`` (the same TextGrids; on two
    packed-decoded [4, bucket] batches, Bmr021's first and one of
    close-talk-like audio that must pack to <= 0.9 of raw, the
    probabilities bit-equal to raw and the kernel held against its plain
-   version; the wire ratio and the pack, upload and decode times) and with
-   ``--mode fused_conv`` (one launch per meeting); the swept hours,
-   audio-s per wall-s end to end and inference only (best of 2), the
-   shorten decode's and the TextGrid writes' shares of the wall, the rate
-   expected on an all-shorten corpus from the measured decode rate, peak
-   memory and one meeting's device breakdown;
-9. the card, one JSON line of the kernels (the fbank kernel at the main
+   version; the wire ratio, the native and numpy pack times beside the
+   raw upload's, the decode time) and with ``--mode fused_conv`` (one
+   launch per meeting); the swept hours, audio-s per wall-s end to end and
+   inference only (best of 2), the shorten decode's and the TextGrid
+   writes' shares of the wall, the rate expected on an all-shorten corpus
+   from the measured decode rate, the sweep of Bro012 alone (the rate on
+   ICSI's encoding), peak memory and one meeting's device breakdown;
+9. training — full-width ``resnet_base`` under strict fp32 (Adam lr 1e-3,
+   clip 1.0) on 100-frame windows of the kernel's features of phase 4's
+   audio with numpy-seeded labels: (a) one step at dropout 0 against the
+   port on the CPU from the same weights (loss 1e-5, gradients 1e-4 of
+   max(1, the leaf's max |g|)), and the card's Adam update within 1e-6 of
+   the CPU's Adam applied to the card's gradients; (b) 20 steps at dropout
+   0.5 on one batch lower the loss; (c) ``TrainLoop`` checkpoints, stops at
+   a step boundary on SIGTERM and resumes: counters restored, parameters
+   within 1e-4 of an uninterrupted run; (d) the trained checkpoint through
+   ``cli/segment_laughter`` on the card: finite probabilities, TextGrids
+   equal to the smoothing of ``LaughterPipeline`` with those weights;
+   (e) train steps per second at B = 32 and 1024 (best of 3 x 50 steps,
+   CUDA events), peak memory, and the device time of one step by region
+   (forward, backward, optimizer) and kind (convs, the rest);
+10. the card, one JSON line of the kernels (the fbank kernel at the main
    path's bucket; ``launches`` counted on phase 8's sweep, the launches of
    every path beside them), then the result line.
 
@@ -80,6 +102,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -91,7 +114,13 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 TOL = dict(atol=2e-4, rtol=1e-4)  # tests/test_fbank_pallas.py's feature tolerance
+#: JAX ``fbank_jit``'s largest error against float64 truth on ``tone()``
+#: (tests/test_torch_fbank_tf32.py measures it on the CPU): the kernel is
+#: held to 1.5x it there, where no fp32 path meets TOL.
+JAX_TONE_ERR = 1.8456e-3
 SECONDS = 150  # main-path audio: three 6144-frame buckets, the last partial
+DEVICE = "cuda"  # phase 9's device (a rehearsal on the CPU sets "cpu")
+TRAIN_SIZES = (32, 1024)  # phase 9's timed batches: resnet_base's preset, and a large one
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # float32 outside the tensor cores, TF32 on the tensor cores (half the
@@ -138,6 +167,16 @@ def closetalk(n: int, seed: int) -> np.ndarray:
     syllables = np.sin(2 * np.pi * 3 * t + r.uniform(0, 2 * np.pi)) ** 2
     w = 0.25 * talking * syllables * voiced + 0.001 * r.standard_normal(n)
     return (np.clip(w, -1, 1) * 32767).astype(np.int16)
+
+
+def tone(seed: int = 0) -> np.ndarray:
+    """16,000 samples of ``0.3 sin(0.05 n)`` over the first 8,000, then
+    silence, plus uniform int16 noise of +-2 LSB, scaled to [-1, 1)
+    (tests/test_torch_fbank_tf32.py's tonal input)."""
+    n = np.arange(16000)
+    pcm = np.where(n < 8000, 0.3 * np.sin(0.05 * n) * 32767, 0.0)
+    pcm = np.round(pcm) + np.random.default_rng(seed).integers(-2, 3, 16000)
+    return pcm.astype(np.int16).astype(np.float32) / np.float32(32768)
 
 
 def seeded_state_dict(model, seed: int, head_gain: float = 0.03):
@@ -336,12 +375,40 @@ def phase_kernel(card, peak, block_frames: int):
                 print("  batch rows equal each channel run alone (bit for bit)")
             if label in timed:
                 times[timed[label]] = time_fbank(x, cfg, peak, card, timed[label])
+        tone_errors(snip)
     return dict(
         name="fbank", route="cuda",
         source="laughter_detection_icsi_tpu_torch/csrc/fbank.cu",
         replaces="laughter_detection_icsi_tpu/ops/fbank_pallas.py:86",
         max_abs_err=max_err, **times["the bucket"],
     )
+
+
+def tone_errors(snip) -> None:
+    """The kernel and the plain version on ``tone()`` against float64
+    truth on the card (the same folded basis and mel bank, in float64):
+    the kernel within 1.5x JAX's own error there (``JAX_TONE_ERR``)."""
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep
+    from laughter_detection_icsi_tpu_torch.ops import fbank as fbank_ops
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda
+
+    x = torch.from_numpy(tone()).cuda()
+    t = host_prep.num_frames(x.shape[-1], snip)
+    frames = x.double().unfold(0, snip.frame_length_samples, snip.frame_shift_samples)[:t]
+    cos_eff, sin_eff = (torch.from_numpy(b).cuda().double()
+                        for b in fbank_ops._effective_bases(snip))
+    mel = ((frames @ cos_eff) ** 2 + (frames @ sin_eff) ** 2) @ torch.from_numpy(
+        fbank_ops._mel_banks(snip)).cuda().double()
+    truth = torch.log(torch.clamp(mel, min=snip.energy_floor))
+    err = lambda feats: (feats.double() - truth).abs().max().item()
+    kernel_err, plain_err = err(fbank_cuda.fbank_cuda(x, snip)), err(fbank_ops.fbank(x, snip))
+    check(kernel_err <= 1.5 * JAX_TONE_ERR,
+          f"tone: kernel {kernel_err:.3e} from float64, over 1.5x JAX's {JAX_TONE_ERR:.3e}")
+    print(f"  tone (0.3 sin(0.05 n), then silence, +-2 LSB): from float64 truth, kernel "
+          f"{kernel_err:.3e}, plain {plain_err:.3e}, JAX fbank_jit {JAX_TONE_ERR:.3e} (CPU); "
+          f"kernel limit 1.5x JAX's = {1.5 * JAX_TONE_ERR:.3e}")
 
 
 def time_fbank(x, cfg, peak, card, where: str) -> dict:
@@ -781,22 +848,49 @@ def phase_multichannel(card, work: Path, ctx: dict) -> int:
     return launches
 
 
-#: The corpus phase 8 sweeps: (meeting, channels, seconds, encoding); 56 min
-#: of audio.  Bmr021 and Bns001 are the dev split, Bmr013 is in test.
-SWEEP_CORPUS = (("Bmr021", 4, 600, "pcm"), ("Bns001", 3, 300, "pcm"), ("Bmr013", 2, 30, "shorten"))
+#: The corpus phase 8 sweeps: (meeting, channels, seconds, encoding); 69.3
+#: min of audio.  Bmr021 and Bns001 are the dev split, Bmr013 is in test,
+#: Bro012 in train.  Bro012 is a meeting in ICSI's own encoding, shorten,
+#: as long as the port's numpy encoder writes in about a minute.
+SWEEP_CORPUS = (("Bmr021", 4, 600, "pcm"), ("Bns001", 3, 300, "pcm"), ("Bmr013", 2, 30, "shorten"),
+                ("Bro012", 4, 200, "shorten"))
+SHORTEN_MEETING = "Bro012"
 
 
-def write_sweep_corpus(root: Path):
+def shorten_channel(path: str, n: int, seed: int) -> str:
+    """``speechlike(n, seed)`` written as shorten SPHERE at ``path`` (a
+    worker of ``write_sweep_corpus``'s process pool); returns the path."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    from laughter_detection_icsi_tpu_torch.data import audio
+
+    tmp = f"{path}.tmp.{os.getpid()}"
+    audio.write_sphere_shorten(tmp, speechlike(n, seed), 16000)
+    os.replace(tmp, path)
+    return path
+
+
+def write_sweep_corpus(root: Path, cache: Path):
     """An ICSI-layout corpus under ``root``: ``transcripts/preambles.mrt``
     and one ``<meeting>.mrt`` each, whose participants have, every 20 s, a
     pure laugh, speech, a noise, a laugh next to speech (invalid) and a
     0.1 s laugh (too short: invalid); ``audio/<meeting>/chanN.sph`` int16
-    audio, one Bmr021 channel 777 samples short.  Returns (transcript dir,
-    audio dir, {meeting: [paths]})."""
+    audio, one Bmr021 channel 777 samples short.  The shorten channels are
+    encoded in parallel processes into ``cache`` (keyed on the encoder's
+    source, the length and the seed) unless already there, then copied.
+    Returns (transcript dir, audio dir, {meeting: [paths]})."""
+    import concurrent.futures
+    import hashlib
+    import multiprocessing
+
     from laughter_detection_icsi_tpu_torch.data import audio
 
     tdir, adir = root / "transcripts", root / "audio"
     tdir.mkdir(parents=True)
+    key = hashlib.sha256(b"".join(
+        (REPO / "laughter_detection_icsi_tpu_torch" / "data" / f).read_bytes()
+        for f in ("shorten.py", "audio.py"))).hexdigest()[:12]
+    shorten_jobs = []
     seg = lambda p, a, b, body: (
         f'    <Segment StartTime="{a}" EndTime="{b}" Participant="{p}">{body}</Segment>')
     preambles, paths = [], {}
@@ -819,15 +913,28 @@ def write_sweep_corpus(root: Path):
             f'  <Transcript StartTime="0.0" EndTime="{secs}.0">\n' + "\n".join(segs)
             + "\n  </Transcript>\n</Meeting>\n")
         (adir / m).mkdir(parents=True)
-        write = audio.write_sphere_shorten if encoding == "shorten" else audio.write_sphere
         paths[m] = []
         for c in range(n_ch):
             n = 16000 * secs - (777 if (m, c) == ("Bmr021", 3) else 0)
+            seed = 100 + 10 * len(paths) + c
             paths[m].append(str(adir / m / f"chan{c}.sph"))
-            write(paths[m][-1], speechlike(n, seed=100 + 10 * len(paths) + c), 16000)
+            if encoding == "shorten":
+                cached = cache / f"shorten_{key}_{n}_{seed}.sph"
+                shorten_jobs.append((str(cached), n, seed, paths[m][-1]))
+            else:
+                audio.write_sphere(paths[m][-1], speechlike(n, seed=seed), 16000)
     (tdir / "preambles.mrt").write_text(
         '<?xml version="1.0" encoding="UTF-8"?>\n<Preambles>\n' + "\n".join(preambles)
         + "\n</Preambles>\n")
+    todo = [job for job in shorten_jobs if not Path(job[0]).is_file()]
+    if todo:
+        cache.mkdir(parents=True, exist_ok=True)
+        with concurrent.futures.ProcessPoolExecutor(
+                max_workers=min(8, len(todo)), mp_context=multiprocessing.get_context("spawn")) as ex:
+            for done in ex.map(shorten_channel, *zip(*(job[:3] for job in todo))):
+                print(f"  encoded {Path(done).name}")
+    for cached, _, _, path in shorten_jobs:
+        shutil.copyfile(cached, path)
     return tdir, adir, paths
 
 
@@ -889,9 +996,12 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
     from laughter_detection_icsi_tpu_torch.eval import textgrid
     from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, smoothing
     from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline
+    from laughter_detection_icsi_tpu_torch.runtime import native
 
+    check(native.available(), "the native audio decoder did not build (g++ under the CUDA "
+                              "toolkit's machine): the sweep would decode shorten in numpy")
     t0 = time.perf_counter()
-    tdir, adir, paths = write_sweep_corpus(work / "corpus")
+    tdir, adir, paths = write_sweep_corpus(work / "corpus", ctx["cache"])
     metas = {m: [audio.info(p) for p in ps] for m, ps in paths.items()}
     audio_s = sum(i.duration for ms in metas.values() for i in ms)
     n_chans = sum(len(ps) for ps in paths.values())
@@ -904,16 +1014,20 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
     n_batches = {m: -(-max(host_prep.num_frames(i.num_samples) for i in ms) // settings.bucket_frames)
                  for m, ms in metas.items()}
     n_warm = len({len(ps) for ps in paths.values()})  # one warm-up per channel count
+    shortened = [m for m, _, _, enc in SWEEP_CORPUS if enc == "shorten"]
+    n_shorten = sum(len(paths[m]) for m in shortened)
     spans = HostSpans()
-    spans.wrap(shorten, "decode_file")
+    spans.wrap(native, "decode_shorten")
+    spans.wrap(shorten, "decode_file")  # the numpy decoder: must not run
     spans.wrap(textgrid, "write_textgrid")
 
-    def run(name: str, *flags) -> dict:
+    def run(name: str, *flags, only=()) -> dict:
         out = work / f"sweep_{name}"
         spans.spans.clear()
         audio._SHORTEN_CACHE.clear()  # every run decodes the shorten files anew
         text = io.StringIO()
         torch.cuda.reset_peak_memory_stats()
+        native_before = native.shorten_decodes
         fbank_cuda.launches = 0
         with contextlib.redirect_stdout(text):
             rc = sweep.main(["--audio_dir", str(adir), "--transcript_dir", str(tdir),
@@ -923,6 +1037,12 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
         launches = fbank_cuda.launches
         check(rc == 0, f"sweep {name} returned {rc}")
         text = text.getvalue()
+        decoded = native.shorten_decodes - native_before
+        want_decodes = sum(len(paths[m]) for m in shortened if not only or m in only)
+        check(decoded == want_decodes and not spans.spans.get("decode_file"),
+              f"sweep {name}: the native decoder decoded {decoded} of {want_decodes} shorten "
+              f"channels, the numpy one {len(spans.spans.get('decode_file', []))}")
+        check("audio decoder: native C++" in text, f"sweep {name}: no native decoder line")
         got = re.search(r"swept ([\d.]+) h of audio \(([\d.]+) audio-s\) in ([\d.]+) s: "
                         r"([\d.]+) audio-s per wall-s end to end, ([\d.]+) inference only", text)
         check(got is not None, f"sweep {name}: no summary line in {text[-500:]}")
@@ -930,7 +1050,7 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
         res = dict(out=out / "all", launches=launches, hours=float(got[1]), wall=wall,
                    e2e=float(got[4]), inference=float(got[5]),
                    peak=torch.cuda.max_memory_allocated(),
-                   decode_s=spans.covered("decode_file"), n_decodes=len(spans.spans.get("decode_file", [])),
+                   decode_s=spans.covered("decode_shorten"), n_decodes=decoded,
                    tg_s=spans.covered("write_textgrid"), n_tg=len(spans.spans.get("write_textgrid", [])))
         report = [line for line in text.splitlines() if line.startswith(("swept", "best F1", "AP("))]
         print(f"sweep {name} ({' '.join(flags) or 'raw'}): {launches} fbank launches; "
@@ -987,9 +1107,11 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
               f"audio-s per wall-s (best of 2: {best_e2e:.2f}); inference only {raw['inference']:.2f}, "
               f"{again['inference']:.2f} (best {best_inf:.2f}); peak device memory "
               f"{raw['peak'] / 2**30:.3f} / {again['peak'] / 2**30:.3f} GiB")
-        shorten_s = sum(i.duration for i in metas["Bmr013"])
+        shorten_s = sum(i.duration for m in shortened for i in metas[m])
+        print(f"every shorten channel ({n_shorten}, {shorten_s:.0f} audio-s) went through the "
+              f"native decoder in each run, none through the numpy one")
         for r, name in ((raw, "first"), (again, "second")):
-            print(f"  {name} run, host shares of the loop's {r['wall']:.3f} s: shorten decode "
+            print(f"  {name} run, host shares of the loop's {r['wall']:.3f} s: native shorten decode "
                   f"{r['decode_s']:.3f} s = {100 * r['decode_s'] / r['wall']:.1f}% "
                   f"({r['n_decodes']} files, {shorten_s:.0f} audio-s); "
                   f"TextGrid writes {r['tg_s']:.3f} s = {100 * r['tg_s'] / r['wall']:.1f}% "
@@ -1002,6 +1124,14 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
             print(f"  expected on an all-shorten corpus of the same {audio_s:.0f} audio-s: "
                   f"{est:.2f} audio-s per wall-s end to end (decode at {rate:.3f} audio-s per "
                   f"decode-s, {audio_s / rate:.1f} s of decode)")
+        alone = run("shorten_meeting", "--meetings", SHORTEN_MEETING, only=(SHORTEN_MEETING,))
+        check(alone["launches"] == 1 + n_batches[SHORTEN_MEETING],
+              f"{SHORTEN_MEETING} sweep: {alone['launches']} launches")
+        print(f"sweep of {SHORTEN_MEETING} alone ({len(paths[SHORTEN_MEETING])} x "
+              f"{metas[SHORTEN_MEETING][0].duration:.0f} s in shorten SPHERE, ICSI's encoding) on "
+              f"{card}: {alone['e2e']:.2f} audio-s per wall-s end to end, {alone['inference']:.2f} "
+              f"inference only; native decode {alone['decode_s']:.3f} s = "
+              f"{100 * alone['decode_s'] / alone['wall']:.1f}% of its {alone['wall']:.3f} s loop")
 
         packed = run("packed", "--transfer_codec", "packed")
         check(packed["launches"] == raw["launches"], f"packed sweep: {packed['launches']} launches")
@@ -1069,13 +1199,23 @@ def packed_batch(card, spipe, ppipe, what: str, batch, valid) -> float:
     from laughter_detection_icsi_tpu_torch.ops import fbank as fbank_ops
     from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, pcm_pack
 
+    from laughter_detection_icsi_tpu_torch.runtime import native
+
+    check(native._load("pcmpack") is not None, "the native PCM packer did not build")
     check(torch.equal(spipe._bucket_probs_batch(batch, valid), ppipe._bucket_probs_batch(batch, valid)),
           f"{what} packed bucket batch's probabilities differ from raw")
-    pack_s = []
-    for _ in range(3):
+    pack_s, numpy_s = [], []
+    for _ in range(3):  # the pipeline's pack: the native packer, rows in threads
         t0 = time.perf_counter()
         wires, deltas = ppipe._maybe_pack(batch)
         pack_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        numpy_packs = [pcm_pack.pack_pcm(row, use_native=False) for row in batch]
+        numpy_s.append(time.perf_counter() - t0)
+    native_packs = [pcm_pack.pack_pcm(row) for row in batch]
+    check(all(np.array_equal(a.words, b.words) and np.array_equal(a.widths, b.widths)
+              for a, b in zip(native_packs, numpy_packs)),
+          f"{what}: the native packer's words differ from the numpy packer's")
     ratio = wires.nbytes / batch.nbytes
     if what == "close-talk":
         check(ratio <= 0.9, f"the close-talk batch packs to {ratio:.4f} of raw, not <= 0.9")
@@ -1120,12 +1260,238 @@ def packed_batch(card, spipe, ppipe, what: str, batch, valid) -> float:
           f"to raw; the decoded wave equals the raw upload; kernel vs plain max |diff| {err:.3e} "
           f"(atol {TOL['atol']}, rtol {TOL['rtol']})")
     print(f"  wire {wires.nbytes} B for {batch.nbytes} B raw = {ratio:.4f} (rows in delta mode: "
-          f"{sum(deltas)} of {len(deltas)}); numpy pack {1e3 * min(pack_s):.2f} ms (host, best of 3, "
-          f"{batch.shape[0]} rows in threads); upload raw {1e3 * up['raw int16']:.3f} ms vs wire "
+          f"{sum(deltas)} of {len(deltas)}); native pack {1e3 * min(pack_s):.3f} ms (host, best of 3, "
+          f"{batch.shape[0]} rows in threads; the numpy packer, rows one after another: "
+          f"{1e3 * min(numpy_s):.2f} ms, the same words); upload raw {1e3 * up['raw int16']:.3f} ms vs wire "
           f"{1e3 * up['packed wire']:.3f} ms (host clock, pageable, best of 5); decode "
           f"{decode_ms:.3f} ms on the device (CUDA events), {1e3 * decode_host:.3f} ms on the host "
           f"clock (launch-bound; best of 5)")
     return err
+
+
+def phase_train(card, work: Path, ctx: dict) -> int:
+    """Training at full width on the card (see the module docstring, phase
+    9); returns the fbank launches that featurized its inputs."""
+    import signal
+
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import inference
+    from laughter_detection_icsi_tpu_torch.cli import segment_laughter as cli
+    from laughter_detection_icsi_tpu_torch.config import FEAT, MODEL_MAP
+    from laughter_detection_icsi_tpu_torch.eval import textgrid
+    from laughter_detection_icsi_tpu_torch.models import zoo
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, smoothing
+    from laughter_detection_icsi_tpu_torch.train import Adam, TrainLoop, Trainer, step_generator
+
+    preset = MODEL_MAP["resnet_base"]
+    weights = {k: v.detach().cpu() for k, v in ctx["model"].state_dict().items()}
+
+    def model(dropout: float):
+        m = zoo.build(preset.model, dropout_rate=dropout, linear_layer_size=preset.linear_layer_size,
+                      filter_sizes=preset.filter_sizes)
+        m.load_state_dict(weights, strict=True)
+        return m
+
+    fbank_cuda.launches = 0
+    with torch.no_grad(), inference.strict_fp32():
+        feats = fbank_cuda.fbank_cuda(torch.from_numpy(ctx["pcm"]).to(DEVICE).float() / 32768.0, FEAT)
+    launches = fbank_cuda.launches
+    check(launches == 1, f"training features: {launches} fbank launches")
+    rng = np.random.default_rng(9)
+    window = torch.arange(100, device=DEVICE)
+
+    def batch(b: int) -> dict:
+        starts = torch.from_numpy(rng.integers(0, feats.shape[0] - 100, b)).to(DEVICE)
+        return {"inputs": feats[starts[:, None] + window],
+                "is_laugh": (rng.uniform(size=b) > 0.5).astype(np.float32)}
+
+    with inference.strict_fp32():  # what Trainer's steps run under
+        precision = precision_setting()
+    print(f"resnet_base ResNetBigger {preset.filter_sizes}, head {preset.linear_layer_size}, "
+          f"batch {preset.batch_size}; windows of {feats.shape[0]} fbank_cuda frames of phase 4's "
+          f"audio, numpy-seeded labels; {precision} inside the steps")
+
+    # (a) One step at dropout 0: the card against the port on the CPU.
+    b0 = batch(preset.batch_size)
+    card_t, cpu_t = Trainer(model(0.0), device=DEVICE), Trainer(model(0.0), device="cpu")
+    x, y = card_t._prep(b0)
+    loss_c, probs_c, g_c = card_t.loss_and_grads(x, y)
+    x_h, y_h = cpu_t._prep({"inputs": b0["inputs"].cpu(), "is_laugh": b0["is_laugh"]})
+    loss_h, _, g_h = cpu_t.loss_and_grads(x_h, y_h)
+    d_loss = abs(loss_c.item() - loss_h.item())
+    check(d_loss <= 1e-5, f"train step: card loss {loss_c.item():.6f} vs CPU {loss_h.item():.6f}")
+    rel = {k: ((g_c[k].cpu() - g_h[k]).abs().max() / max(1.0, g_h[k].abs().max().item())).item()
+           for k in g_h}
+    worst = max(rel, key=rel.get)
+    check(rel[worst] <= 1e-4, f"train step: gradient of {worst} off by {rel[worst]:.3e} of "
+                              "max(1, its max |g|) from the CPU's")
+    before = {k: p.detach().cpu().clone() for k, p in card_t.params.items()}
+    card_t.optimizer.update(g_c, card_t.init(), card_t.params)
+    cpu_adam = Adam()
+    cpu_adam.update({k: g.cpu() for k, g in g_c.items()}, cpu_adam.init(before), before)
+    d_upd = max((card_t.params[k].detach().cpu() - before[k]).abs().max().item() for k in before)
+    check(d_upd <= 1e-6, f"train step: the card's Adam update is {d_upd:.3e} from the CPU's")
+    print(f"(a) one step, dropout 0, B={preset.batch_size}: loss card {loss_c.item():.6f} vs CPU "
+          f"{loss_h.item():.6f} (|diff| {d_loss:.3e}, limit 1e-5); probs in "
+          f"[{probs_c.min().item():.4f}, {probs_c.max().item():.4f}]; gradients: worst leaf "
+          f"{worst} {rel[worst]:.3e} of max(1, max |g|) (limit 1e-4); the card's Adam update vs "
+          f"the CPU's Adam on the card's gradients {d_upd:.3e} (limit 1e-6)")
+
+    # (b) 20 steps at dropout 0.5 on one batch.
+    t = Trainer(model(0.5), device=DEVICE)
+    opt, losses = t.init(), []
+    for step in range(20):
+        opt, m = t.train_batch(opt, b0, step_generator(0, step, DEVICE))
+        losses.append(m["loss"])
+    losses = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"20 steps on one batch: losses {losses[0]:.4f} ... {losses[-1]:.4f}")
+    print(f"(b) 20 steps, dropout 0.5, one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(min {losses.min():.4f})")
+
+    # (c) TrainLoop: checkpoint, SIGTERM at a step boundary, resume.
+    batches = [batch(preset.batch_size) for _ in range(10)]
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, signal.getsignal(signal.SIGTERM),
+             signal.getsignal(signal.SIGINT))
+    cudnn.deterministic, cudnn.benchmark = True, False  # the two runs take the same algorithms
+    try:
+        ref = Trainer(model(0.5), device=DEVICE)
+        ref_loop = TrainLoop(trainer=ref, checkpoint_dir=str(work / "train_ref"), log_frequency=3)
+        ref_loop.run_epoch(ref.init(), batches, seed=7, verbose=False)
+
+        def signalled():
+            for i, b in enumerate(batches):
+                if i == 4:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                yield b
+
+        t = Trainer(model(0.5), device=DEVICE)
+        loop = TrainLoop(trainer=t, checkpoint_dir=str(work / "train"), log_frequency=3)
+        loop.install_preemption_handler()
+        loop.run_epoch(t.init(), signalled(), seed=7, verbose=False)
+        check(loop.preempted and (loop.global_step, loop.epoch_step) == (5, 5),
+              f"SIGTERM: stopped at step {loop.global_step}, epoch_step {loop.epoch_step}")
+        t2 = Trainer(model(0.5), device=DEVICE)
+        loop2 = TrainLoop(trainer=t2, checkpoint_dir=str(work / "train"), log_frequency=3)
+        opt2 = loop2.resume_if_possible(t2.init())
+        restored = (loop2.global_step, loop2.epoch, loop2.epoch_step, int(opt2.step))
+        check(restored == (5, 0, 5, 5), f"resume restored (global_step, epoch, epoch_step, "
+                                        f"Adam step) = {restored}")
+        opt2, _ = loop2.run_epoch(opt2, batches, seed=7, verbose=False)
+        loop2.save(opt2)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved[:2]
+        signal.signal(signal.SIGTERM, saved[2])
+        signal.signal(signal.SIGINT, saved[3])
+    want = ref.model.state_dict()
+    d_resume = max((v.float() - want[k].float()).abs().max().item()
+                   for k, v in t2.model.state_dict().items())
+    check(d_resume <= 1e-4, f"resumed run {d_resume:.3e} from the uninterrupted one")
+    print(f"(c) TrainLoop, 10 steps, dropout 0.5, log_frequency 3: SIGTERM before batch 5 -> "
+          f"checkpoint at step 5, resume restored (global_step, epoch, epoch_step, Adam step) "
+          f"{restored}; resumed vs uninterrupted max |diff| {d_resume:.3e} (limit 1e-4; "
+          f"cuDNN deterministic)")
+
+    # (d) The trained checkpoint through the segment CLI.
+    ckpt = str(work / "train" / "last.ckpt.npz")
+    trained = model(0.0)
+    trained.load_state_dict(t2.model.state_dict())
+    pipe = inference.LaughterPipeline(trained, settings=inference.settings_from_flags(device=DEVICE),
+                                      device=DEVICE)
+    probs, _ = pipe.probs_for_file(str(ctx["wav"]))
+    check_probs(probs, ctx["probs"].shape, "trained checkpoint")
+    thr = midway_threshold(probs)
+    out = work / "out_trained"
+    rc = cli.main(["--model_path", ckpt, "--input_audio_file", str(ctx["wav"]),
+                   "--output_dir", str(out), "--thresholds", f"{thr}", "--min_lengths", "0.2",
+                   "--save_to_textgrid", "True", "--save_to_audio_files", "False",
+                   "--device", DEVICE])
+    check(rc == 0, f"segment CLI on the trained checkpoint returned {rc}")
+    got = textgrid.read_laughter_intervals(str(out / f"t_{thr}" / "l_0.2" / "meeting.TextGrid"))
+    want_i = smoothing.get_laughter_instances(probs, [thr], [0.2])[(thr, 0.2)]
+    check(got == want_i, "the trained checkpoint's TextGrid differs from LaughterPipeline's")
+    print(f"(d) the trained checkpoint through cli/segment_laughter --device cuda: probabilities "
+          f"finite in [{probs.min():.4f}, {probs.max():.4f}]; {len(got)} instances at threshold "
+          f"{thr}, equal to the smoothing of LaughterPipeline with those weights")
+
+    # (e) Steps per second, peak memory, where one step's device time goes.
+    for b in TRAIN_SIZES:
+        t = Trainer(model(0.5), device=DEVICE)
+        opt = t.init()
+        bb = batch(b)
+        gens = [step_generator(1, s, DEVICE) for s in range(50)]
+        for s in range(3):
+            opt, _ = t.train_batch(opt, bb, gens[s])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for s in range(50):
+                opt, _ = t.train_batch(opt, bb, gens[s])
+            end.record()
+            end.synchronize()
+            ms.append((start.elapsed_time(end) / 50, 1e3 * (time.perf_counter() - t0) / 50))
+        best = min(ms)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"(e) B={b} on {card}: {1e3 / best[0]:.2f} train steps per second (best of 3 x 50: "
+              f"{', '.join(f'{d:.3f}' for d, _ in ms)} ms a step between CUDA events; host clock "
+              f"{best[1]:.3f} ms); {b * 1e3 / best[0]:.0f} windows per second; peak device memory "
+              f"{peak / 2**30:.3f} GiB")
+        train_breakdown(f"B={b}", lambda: t.train_batch(opt, bb, gens[0]), work / f"train_{b}.trace.json")
+    return launches
+
+
+def train_breakdown(what: str, step, trace_path: Path, steps: int = 5) -> None:
+    """Profile ``steps`` train steps (torch.profiler) and print the device's
+    busy share of their wall and its time by region (the Trainer's
+    'train/forward', 'train/backward', 'train/optimizer' annotations) and
+    kind (cuDNN convolutions, everything else).  A kernel belongs to the
+    region whose host range holds its launch (matched by correlation id)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    prof.export_chrome_trace(str(trace_path))
+    events = json.loads(trace_path.read_text()).get("traceEvents", [])
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        print(f"  train step breakdown ({what}): not measured (no device activity recorded)")
+        return
+    regions = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
+                     if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                     and str(e.get("name", "")).startswith("train/"))
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    conv = ("conv", "cudnn", "xmma", "dgrad", "wgrad", "fprop", "winograd")
+    table, busy_us, end = {}, 0.0, -math.inf
+    for e in dev:
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        region = next((n for a, b, n in regions if ts is not None and a <= ts <= b), "other")
+        kind = "convs" if any(c in e["name"].lower() for c in conv) else "the rest"
+        table[(region, kind)] = table.get((region, kind), 0.0) + float(e["dur"]) / 1e3
+    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    total = sum(table.values())
+    print(f"  profiled {steps} steps ({what}): wall {wall_ms:.2f} ms, device busy "
+          f"{busy_us / 1e3:.2f} ms = {100 * busy_us / 1e3 / wall_ms:.1f}%, device time "
+          f"{total:.2f} ms = {total / steps:.3f} ms a step:")
+    for (region, kind), ms in sorted(table.items(), key=lambda kv: -kv[1]):
+        print(f"    {region:16s} {kind:9s} {ms / steps:8.3f} ms a step = {100 * ms / total:5.1f}%")
 
 
 def device_breakdown(what: str, fn, best_s: float, trace_path: Path) -> None:
@@ -1184,7 +1550,7 @@ def main() -> int:
               f"{Path(__file__).name}; run it from a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    work = REPO / "build" / "chip_smoke"
+    work = REPO / "build" / "chip_smoke" / "run"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     try:
@@ -1203,7 +1569,10 @@ def main() -> int:
         print("== 7. multichannel ==")
         batched = phase_multichannel(card, work, ctx)
         print("== 8. corpus sweep ==")
+        ctx["cache"] = work.parent / "cache"
         swept = phase_sweep(card, work, ctx)
+        print("== 9. training ==")
+        trained = phase_train(card, work, ctx)
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -1214,7 +1583,8 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     by_path = {"windows": ctx["launches"], "fused_conv": fused, "serve": streamed,
                "multichannel": batched, "sweep": swept["launches"],
-               "sweep_packed": swept["packed"], "sweep_fused_conv": swept["fused"]}
+               "sweep_packed": swept["packed"], "sweep_fused_conv": swept["fused"],
+               "training_features": trained}
     print(f"fbank launches per path: windows {ctx['launches']} ({ctx['n_buckets']} buckets), "
           f"fused_conv {fused} (one file), serve replay {streamed} ({ctx['n_buckets']} buckets "
           f"+ warm-up), multichannel {batched} (bucket batches of 4 channels), corpus sweep "

@@ -112,6 +112,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from laughter_detection_icsi_tpu_torch.models import zoo
     from laughter_detection_icsi_tpu_torch.ops import smoothing
     from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline
+    from laughter_detection_icsi_tpu_torch.runtime import native
     from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
     from laughter_detection_icsi_tpu_torch.utils.profiling import ThroughputMeter, trace
 
@@ -198,6 +199,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         pipe.probs_for_waveforms_device([np.zeros(warm_len, np.int16)] * n_ch)
     if on_card:
         torch.cuda.synchronize(pipe.device)
+
+    # Which decoder the shorten channels go through: the numpy fallback is
+    # ~100x slower, so a sweep says which one it runs.
+    if native.available():
+        print(f"audio decoder: native C++ ({native.library_path('audiodec')})")
+    else:
+        print("audio decoder: numpy (the native library did not build; see the warning)")
 
     out_root = Path(args.output_dir) / args.split
     meter = ThroughputMeter(n_chips=1)

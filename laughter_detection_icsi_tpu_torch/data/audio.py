@@ -4,8 +4,9 @@ Owns the roles the reference delegates to librosa/audioread/soundfile and the
 ``sph2pipe`` binary (reference segment_laughter.py:134, utils/audio_utils.py:7-9,
 analysis/output_processing/laughs_to_wav.py:42-60): header parsing, PCM
 decode, segment cutting, and WAV writing.  A copy of the JAX package's
-``data/audio.py`` for the PyTorch port, without its native (C++) shorten
-fast path: shorten streams decode in numpy (data/shorten.py).
+``data/audio.py`` for the PyTorch port: shorten streams decode through the
+native C++ decoder (runtime/native.py), or in numpy (data/shorten.py)
+where it cannot be built.
 
 Supported encodings: 16-bit/8-bit linear PCM (either endianness), mu-law,
 and embedded-shorten v2 (the compression the ICSI corpus actually ships —
@@ -234,9 +235,16 @@ def _decode_shorten_cached(path: str, meta: AudioInfo) -> np.ndarray:
             _SHORTEN_CACHE[key] = hit
     if hit is not None:
         return hit
-    from laughter_detection_icsi_tpu_torch.data import shorten as _shorten
+    from laughter_detection_icsi_tpu_torch.runtime import native
 
-    pcm = _shorten.decode_file(path, meta.data_offset, max_frames=meta.num_samples)
+    try:  # the native decoder, where it builds (runtime/csrc/audio_decoder.cpp)
+        pcm = native.decode_shorten(path, meta.num_samples, meta.num_channels)
+    except (ValueError, NotImplementedError):
+        pcm = None  # the numpy decoder below reports the stream's fault itself
+    if pcm is None:
+        from laughter_detection_icsi_tpu_torch.data import shorten as _shorten
+
+        pcm = _shorten.decode_file(path, meta.data_offset, max_frames=meta.num_samples)
     with _SHORTEN_CACHE_LOCK:
         while len(_SHORTEN_CACHE) >= _SHORTEN_CACHE_MAX:
             _SHORTEN_CACHE.pop(next(iter(_SHORTEN_CACHE)))

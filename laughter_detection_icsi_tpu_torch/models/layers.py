@@ -1,4 +1,4 @@
-"""Eval-mode primitive layers with the JAX package's numerics.
+"""Primitive layers with the JAX package's numerics.
 
 Each function takes the torch module that holds the parameters (an
 ``nn.Conv2d``, ``nn.Linear`` or ``nn.BatchNorm*d``) and applies it the way
@@ -6,10 +6,16 @@ the JAX package's ``models/layers.py`` does, in particular eval BatchNorm
 as ``(x - mean) * (weight * rsqrt(var + eps)) + bias`` — the same
 expression and rounding order, not ``F.batch_norm``.  Shared-stem inference
 relies on every path rounding alike (models/shared_stem.py).
+
+Train mode, as JAX's: BatchNorm normalizes by the batch's biased variance
+(statistics in float32) and moves the running statistics by momentum 0.1
+with the unbiased one; dropout scales the kept values by 1 / keep.  The
+initializers draw from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -17,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 Pair = Union[int, Tuple[int, int]]
 
@@ -33,15 +40,46 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     return x @ lin.weight.T + lin.bias
 
 
-def batch_norm(x: torch.Tensor, bn: Optional[nn.Module]) -> torch.Tensor:
-    """Eval BatchNorm over the channel axis (axis 1 of NCHW or [B, C]);
-    identity when ``bn`` is None (the batch-norm-free models)."""
+def batch_norm(x: torch.Tensor, bn: Optional[nn.Module], train: bool = False) -> torch.Tensor:
+    """BatchNorm over the channel axis (axis 1 of NCHW or [B, C]); identity
+    when ``bn`` is None (the batch-norm-free models).  Eval uses the running
+    statistics; ``train`` the batch's, and updates the running ones in
+    place (:func:`_batch_stats`)."""
     if bn is None:
         return x
     shape = (1, -1, 1, 1) if x.ndim == 4 else (1, -1)
+    if train:
+        mean, var = _batch_stats(x, bn, shape)
+        inv = torch.rsqrt(var + BN_EPS)
+        y = (x - mean.reshape(shape)) * (bn.weight * inv).reshape(shape)
+        return y + bn.bias.reshape(shape)
     inv = torch.rsqrt(bn.running_var + BN_EPS)
     y = (x - bn.running_mean.reshape(shape)) * (bn.weight * inv).reshape(shape)
     return y + bn.bias.reshape(shape)
+
+
+def _batch_stats(x: torch.Tensor, bn: nn.Module, shape) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The batch's mean and biased variance per channel, in float32; the
+    running statistics move by ``BN_MOMENTUM`` toward the mean and the
+    unbiased variance, and ``num_batches_tracked`` counts one more batch."""
+    axes = (0, 2, 3) if x.ndim == 4 else (0,)
+    n = x.numel() // x.shape[1]
+    if n <= 1:
+        # torch raises here too; a zero "unbiased" variance would quietly
+        # decay running_var toward 0.
+        raise ValueError(
+            f"batch_norm(train=True) needs more than 1 value per channel, got {n} "
+            "(size-1 tail batch? use drop_remainder)"
+        )
+    xf = x.float()
+    mean = xf.mean(dim=axes)
+    var = ((xf - mean.reshape(shape)) ** 2).mean(dim=axes)
+    with torch.no_grad():
+        bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean)
+        bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var
+                             + BN_MOMENTUM * (var * (n / (n - 1))))
+        bn.num_batches_tracked.add_(1)
+    return mean.to(x.dtype), var.to(x.dtype)
 
 
 def bn_eval_affine(bn: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -61,3 +99,47 @@ def avg_pool2d(x: torch.Tensor, k: int) -> torch.Tensor:
     oh, ow = h // k, w // k
     x = x[:, :, : oh * k, : ow * k].reshape(b, c, oh, k, ow, k)
     return x.mean(dim=(3, 5))
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            train: bool) -> torch.Tensor:
+    """Inverted dropout: in train mode each value is kept with probability
+    ``1 - rate`` (a uniform draw from ``generator`` below it) and scaled by
+    ``1 / (1 - rate)``; the identity otherwise, or without a generator."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> None:
+    draw = torch.empty(t.shape, dtype=t.dtype).uniform_(-bound, bound, generator=generator)
+    with torch.no_grad():
+        t.copy_(draw)
+
+
+def conv_init(conv: nn.Conv2d, generator: torch.Generator) -> None:
+    """JAX ``layers.conv_init``: weight and bias uniform in
+    +-1/sqrt(fan_in), drawn from ``generator`` (a CPU one)."""
+    bound = 1.0 / math.sqrt(conv.weight[0].numel())
+    _uniform_(conv.weight, bound, generator)
+    if conv.bias is not None:
+        _uniform_(conv.bias, bound, generator)
+
+
+def linear_init(lin: nn.Linear, generator: torch.Generator) -> None:
+    """JAX ``layers.linear_init``: weight and bias uniform in
+    +-1/sqrt(in_features)."""
+    bound = 1.0 / math.sqrt(lin.in_features)
+    _uniform_(lin.weight, bound, generator)
+    _uniform_(lin.bias, bound, generator)
+
+
+def reference_init(module: nn.Module, generator: torch.Generator, std: float = 0.01) -> None:
+    """The reference's blanket re-init: normal(0, std) on every parameter,
+    BatchNorm's weight and bias included (reference utils/torch_utils.py:
+    22-24); buffers (the running statistics) are left as they are."""
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(torch.randn(p.shape, generator=generator, dtype=p.dtype) * std)

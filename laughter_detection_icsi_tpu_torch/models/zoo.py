@@ -1,4 +1,4 @@
-"""The laughter-classifier model zoo as ``nn.Module``s (eval only).
+"""The laughter-classifier model zoo as ``nn.Module``s.
 
 The architectures of the JAX package's ``models/zoo.py`` (reference
 models.py:6-308): ``ResNetBigger`` (the production model), ``ResNet``,
@@ -8,9 +8,14 @@ shapes equal the JAX package's flat checkpoint keys (``conv1.weight``,
 JAX ``(params, state)`` pair loads with ``load_state_dict(strict=True)``
 (train/checkpoint.py).
 
-Inference only: BatchNorm uses its running statistics and dropout is the
-identity.  ``forward`` takes [B, 1, window, F] and returns [B]
-probabilities.
+``forward(x, generator=None)`` takes [B, 1, window, F] and returns [B]
+probabilities.  It branches on ``self.training``, as JAX's ``apply`` on
+``train``: in eval mode BatchNorm uses its running statistics and dropout
+is the identity; in train mode BatchNorm normalizes by the batch's
+statistics and updates the running ones in place, and dropout draws from
+``generator`` (required when ``dropout_rate > 0``: without it dropout
+would silently act as 0).  ``build`` draws the initial weights from a
+seed; ``reference_init`` gives the reference's normal(0, 0.01) init.
 """
 
 from __future__ import annotations
@@ -47,12 +52,13 @@ class ResidualBlock(nn.Module):
         return self.shortcut[1] if len(self.shortcut) > 1 else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        train = self.training
         out = L.conv2d(x, self.conv1, stride=self.stride, padding=1)
-        out = torch.relu(L.batch_norm(out, self.bn1))
-        out = L.batch_norm(L.conv2d(out, self.conv2, stride=1, padding=1), self.bn2)
+        out = torch.relu(L.batch_norm(out, self.bn1, train))
+        out = L.batch_norm(L.conv2d(out, self.conv2, stride=1, padding=1), self.bn2, train)
         if self.shortcut is not None:
             sc = L.conv2d(x, self.shortcut[0], stride=self.stride, padding=0)
-            sc = L.batch_norm(sc, self.shortcut_bn())
+            sc = L.batch_norm(sc, self.shortcut_bn(), train)
         else:
             sc = x
         return torch.relu(out + sc)
@@ -86,7 +92,7 @@ class ResNetFamily(nn.Module):
                 f"got {len(filter_sizes)}: {filter_sizes}"
             )
         self.name = name
-        self.dropout_rate = dropout_rate  # eval only: dropout is the identity
+        self.dropout_rate = dropout_rate
         self.with_bn = with_bn
         chans = (stem_channels,) + filter_sizes
         self.conv1 = nn.Conv2d(1, stem_channels, 3, bias=False)
@@ -105,21 +111,26 @@ class ResNetFamily(nn.Module):
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """conv1 -> BN -> ReLU."""
-        return torch.relu(L.batch_norm(L.conv2d(x, self.conv1, 1, 1), self.bn1))
+        return torch.relu(L.batch_norm(L.conv2d(x, self.conv1, 1, 1), self.bn1, self.training))
 
-    def tail(self, x: torch.Tensor, first_stage: int) -> torch.Tensor:
+    def tail(self, x: torch.Tensor, first_stage: int,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Stages ``first_stage``..4 and the head on a stage-(first_stage-1)
-        output [B, C, H, F] -> [B] probabilities."""
+        output [B, C, H, F] -> [B] probabilities (dropout, in train mode,
+        after the head's two BatchNorms)."""
+        train, rate = self.training, self.dropout_rate
         for stage in self.stages()[first_stage - 1:]:
             x = stage(x)
         x = L.avg_pool2d(x, 4)
         x = x.reshape(x.shape[0], -1)  # NCHW flatten, torch .view order
-        x = L.batch_norm(x, self.bn2)
-        x = torch.relu(L.batch_norm(L.linear(x, self.linear1), self.bn3))
+        x = L.dropout(L.batch_norm(x, self.bn2, train), rate, generator, train)
+        x = L.batch_norm(L.linear(x, self.linear1), self.bn3, train)
+        x = torch.relu(L.dropout(x, rate, generator, train))
         return torch.sigmoid(L.linear(x, self.linear2))[:, 0]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.tail(self.stem(x), first_stage=1)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        _check_generator(self, generator)
+        return self.tail(self.stem(x), first_stage=1, generator=generator)
 
 
 class MLPModel(nn.Module):
@@ -133,7 +144,7 @@ class MLPModel(nn.Module):
         super().__init__()
         del filter_sizes  # accepted and ignored, like the reference constructor
         self.name = "MLPModel"
-        self.dropout_rate = dropout_rate  # eval only: dropout is the identity
+        self.dropout_rate = dropout_rate
         self.linear_layer_size = linear_layer_size
         self.linear1 = nn.Linear(linear_layer_size, hid_dim1)
         self.bn1 = nn.BatchNorm1d(hid_dim1)
@@ -141,7 +152,8 @@ class MLPModel(nn.Module):
         self.bn2 = nn.BatchNorm1d(hid_dim2)
         self.linear3 = nn.Linear(hid_dim2, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        _check_generator(self, generator)
         feat = math.prod(x.shape[1:])
         if x.ndim > 1 and feat != self.linear_layer_size:
             # The reference's view(-1, input_dim) would silently regroup the
@@ -153,9 +165,22 @@ class MLPModel(nn.Module):
                 "flattened window size"
             )
         x = x.reshape(-1, self.linear_layer_size)
-        h = torch.relu(L.batch_norm(L.linear(x, self.linear1), self.bn1))
-        h = torch.relu(L.batch_norm(L.linear(h, self.linear2), self.bn2))
+        train, rate = self.training, self.dropout_rate
+        h = L.batch_norm(L.linear(x, self.linear1), self.bn1, train)
+        h = torch.relu(L.dropout(h, rate, generator, train))
+        h = L.batch_norm(L.linear(h, self.linear2), self.bn2, train)
+        h = torch.relu(L.dropout(h, rate, generator, train))
         return torch.sigmoid(L.linear(h, self.linear3))[:, 0]
+
+
+def _check_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Train mode with dropout and no generator raises, as JAX's ``apply``
+    without an rng does."""
+    if model.training and generator is None and model.dropout_rate > 0.0:
+        raise ValueError(
+            f"{model.name} in train mode needs a generator: dropout_rate="
+            f"{model.dropout_rate} would silently act as 0.0 without one"
+        )
 
 
 def _check_fixed_filter_plan(name: str, filter_sizes, fixed: Tuple[int, ...]):
@@ -205,9 +230,10 @@ def build(architecture: str, dropout_rate: float = 0.5,
           filter_sizes: Optional[Sequence[int]] = None, seed: int = 0) -> nn.Module:
     """Build a model by architecture name (config.ModelPreset.model), in
     eval mode.  ``linear_layer_size`` / ``filter_sizes`` left as None take
-    each architecture's own default.  The initial weights come from torch's
-    default initializers seeded with ``seed`` (the global RNG is left as it
-    was); a checkpoint replaces them."""
+    each architecture's own default.  The initial weights are JAX's
+    initializers (``layers.conv_init`` / ``linear_init``; BatchNorm at
+    weight 1, bias 0) drawn from a generator seeded with ``seed``; a
+    checkpoint or :func:`reference_init` replaces them."""
     if architecture not in MODEL_REGISTRY:
         raise KeyError(
             f"unknown architecture {architecture!r}; "
@@ -218,7 +244,21 @@ def build(architecture: str, dropout_rate: float = 0.5,
         kwargs["linear_layer_size"] = linear_layer_size
     if filter_sizes is not None:
         kwargs["filter_sizes"] = filter_sizes
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
+    with torch.random.fork_rng(devices=[]):  # the modules' own init draws globally
         model = MODEL_REGISTRY[architecture](**kwargs)
+    gen = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            L.conv_init(m, gen)
+        elif isinstance(m, nn.Linear):
+            L.linear_init(m, gen)
     return model.eval()
+
+
+def reference_init(model: nn.Module, seed: int) -> nn.Module:
+    """The reference's init, the one its training starts from: normal(0,
+    0.01) on every parameter (BatchNorm's included), drawn in parameter
+    order from a generator seeded with ``seed``; buffers untouched.
+    Returns ``model``."""
+    L.reference_init(model, torch.Generator().manual_seed(seed))
+    return model

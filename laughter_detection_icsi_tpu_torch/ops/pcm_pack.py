@@ -17,8 +17,8 @@ that plain vector ops decode on the device (no entropy coding):
   stream is a dense bit-concatenation with no per-block headers.
 
 The host side (``pack_pcm`` and its helpers) is a copy of the JAX
-package's numpy packer, word for word; the native C++ packer is ROADMAP
-item 9, so ``use_native`` is accepted and ignored.  The device side
+package's: the native C++ packer (runtime/native.py) where it builds, the
+numpy packer word for word beside it.  The device side
 (``split_wire``, ``unpack_pcm``) is plain torch ops, as the JAX decoder is
 plain ``jnp`` that XLA compiles (not a Pallas kernel): two gathers into the
 word stream, per-sample shifts and masks, a sign-extend and, in delta mode,
@@ -145,8 +145,8 @@ def _finish(stream: np.ndarray, n_words: int, widths, n, delta) -> PackedPCM:
     return PackedPCM(words=words, widths=widths, n=n, delta=delta)
 
 
-#: pack_pcm's encoding modes.
-_MODES = ("auto", "direct", "delta")
+#: pack_pcm encoding modes -> the native packer's mode int.
+_MODES = {"auto": -1, "direct": 0, "delta": 1}
 
 
 def pack_pcm(
@@ -156,9 +156,9 @@ def pack_pcm(
     width tables and keeps the smaller encoding (deltas almost always win
     on audio; direct wins on e.g. white noise near full scale);
     'delta'/'direct' force one (batched decoders need every channel on the
-    same mode).  ``use_native`` is accepted for the JAX package's
-    interface and ignored: this is the numpy packer."""
-    del use_native
+    same mode).  Uses the native packer (runtime/csrc/pcm_pack.cpp) where
+    it builds and ``use_native`` is set, else the numpy packer below; the
+    two give the same words."""
     if mode not in _MODES:
         raise ValueError(f"unknown pack mode {mode!r}")
     wave = np.ascontiguousarray(wave)
@@ -168,6 +168,14 @@ def pack_pcm(
         raise TypeError(f"pack_pcm wants a 1-D waveform, got shape {wave.shape}")
     n = len(wave)
     n_blocks = block_count(n)
+
+    if use_native:
+        from laughter_detection_icsi_tpu_torch.runtime import native
+
+        got = native.pack_pcm_native(wave, BLOCK, mode=_MODES[mode])
+        if got is not None:
+            stream, widths, use_delta, n_words = got
+            return _finish(stream, n_words, widths, n, use_delta)
 
     padded = np.zeros(n_blocks * BLOCK, dtype=np.int32)
     padded[:n] = wave

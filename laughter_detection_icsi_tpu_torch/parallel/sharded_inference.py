@@ -39,6 +39,7 @@ from laughter_detection_icsi_tpu_torch.inference import (
     track_wave_len,
 )
 from laughter_detection_icsi_tpu_torch.ops.fbank_cuda import fbank_cuda
+from laughter_detection_icsi_tpu_torch.runtime import native
 
 
 class ShardedPipeline(LaughterPipeline):
@@ -164,9 +165,11 @@ class ShardedPipeline(LaughterPipeline):
     def probs_for_meeting_device(self, audio_paths: Sequence[str], channel: int = 0):
         """Like :meth:`probs_for_meeting`, but the probabilities stay on the
         device: ((probs [C, t_max] | None, frame counts), durations).
-        16-bit sources decode to int16 in a thread pool and ship as int16;
-        other encodings decode to float per channel (the numpy decoders;
-        the native C++ decoder is ROADMAP item 9)."""
+        16-bit sources (shorten included) decode to int16 in a thread pool
+        and ship as int16: the native decoder (runtime/native.py) releases
+        the GIL inside its ctypes call, so the channels decode
+        concurrently.  Other encodings decode to float in the native
+        library's own thread pool (``native.read_batch``)."""
         if not audio_paths:
             return (None, []), []
         metas = [audio_io.info(p) for p in audio_paths]
@@ -186,7 +189,7 @@ class ShardedPipeline(LaughterPipeline):
                     zip(audio_paths, metas),
                 ))
         else:
-            decoded = [audio_io.read(p, channel=channel) for p in audio_paths]
+            decoded = native.read_batch(audio_paths, channels=[channel] * len(audio_paths))
         ts = [host_prep.num_frames(m.num_samples, self.feat_cfg) for m in metas]
         dtype = np.int16 if int16_in else np.float32
         padded_list = []

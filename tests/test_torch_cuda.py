@@ -198,3 +198,54 @@ def test_packed_codec_equals_raw(card):
         )
         for a, b in zip(raw, packed):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(card):
+    """One train step of a narrow ResNetBigger at dropout 0: loss and
+    gradients on the card against the port on the CPU; the card's Adam
+    update against the CPU's Adam applied to the card's gradients (Adam's
+    first step is sign-like, so near-zero gradients would turn the
+    devices' fp differences into lr-sized parameter differences)."""
+    from laughter_detection_icsi_tpu_torch.train import Adam, Trainer
+
+    rng = np.random.default_rng(4)
+    batch = {"inputs": (rng.standard_normal((8, 100, 44)) * 0.5).astype(np.float32),
+             "is_laugh": (rng.uniform(size=8) > 0.5).astype(np.float32)}
+
+    def trainer(device):
+        m = zoo.reference_init(zoo.build("ResNetBigger", dropout_rate=0.0, linear_layer_size=24,
+                                         filter_sizes=(8, 8, 8, 8)), seed=3)
+        return Trainer(m, device=device)
+
+    gpu, cpu = trainer(card), trainer("cpu")
+    loss_g, _, g_g = gpu.loss_and_grads(*gpu._prep(batch))
+    loss_c, _, g_c = cpu.loss_and_grads(*cpu._prep(batch))
+    assert abs(loss_g.item() - loss_c.item()) <= 1e-5
+    for k in g_c:
+        torch.testing.assert_close(g_g[k].cpu(), g_c[k], atol=1e-4, rtol=0)
+    before = {k: p.detach().cpu().clone() for k, p in gpu.params.items()}
+    opt = gpu.optimizer.update(g_g, gpu.init(), gpu.params)
+    Adam().update({k: g.cpu() for k, g in g_g.items()}, Adam().init(before), before)
+    assert int(opt.step) == 1
+    for k, p in gpu.params.items():
+        torch.testing.assert_close(p.detach().cpu(), before[k], atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_native_decoder_on_the_cards_machine(card, tmp_path):
+    """The card's machine builds the native runtime (its CUDA toolkit
+    brings a host compiler): shorten decodes there natively, equal to the
+    numpy decoder."""
+    from laughter_detection_icsi_tpu_torch.data import audio, shorten
+    from laughter_detection_icsi_tpu_torch.runtime import native
+
+    assert native.available()
+    pcm = (np.cumsum(np.random.default_rng(6).standard_normal(32000)) * 50).astype(np.int16)
+    path = str(tmp_path / "s.sph")
+    audio.write_sphere_shorten(path, pcm, 16000)
+    meta = audio.info(path)
+    got = native.decode_shorten(path, meta.num_samples, meta.num_channels)
+    np.testing.assert_array_equal(got[:, 0], pcm)
+    np.testing.assert_array_equal(
+        got, shorten.decode_file(path, meta.data_offset, max_frames=meta.num_samples))

@@ -115,3 +115,43 @@ def test_check_config_refuses_shift_off_8():
     assert cfg.frame_shift_samples % 8 and 2 * 162 < cfg.frame_length_samples <= 3 * 162
     with pytest.raises(NotImplementedError, match="multiple of 8"):
         fbank_cuda.check_config(cfg)
+
+
+def _tone(seed: int = 0) -> np.ndarray:
+    """16,000 samples: ``0.3 sin(0.05 n)`` over the first 8,000, then
+    silence, plus uniform int16 noise of +-2 LSB, scaled to [-1, 1)."""
+    n = np.arange(16000)
+    pcm = np.where(n < 8000, 0.3 * np.sin(0.05 * n) * 32767, 0.0)
+    pcm = np.round(pcm) + np.random.default_rng(seed).integers(-2, 3, 16000)
+    return (pcm.astype(np.int16).astype(np.float32) / np.float32(32768))
+
+
+def _float64_truth(wave: np.ndarray) -> np.ndarray:
+    """The snip-geometry features of ``wave`` with the same folded basis
+    and mel bank as the fp32 paths, evaluated in float64."""
+    t = host_prep.num_frames(wave.shape[-1], SNIP)
+    shift, flen = SNIP.frame_shift_samples, SNIP.frame_length_samples
+    frames = np.lib.stride_tricks.sliding_window_view(wave.astype(np.float64), flen)[::shift][:t]
+    cos_eff, sin_eff = (b.astype(np.float64) for b in tfb._effective_bases(SNIP))
+    power = (frames @ cos_eff) ** 2 + (frames @ sin_eff) ** 2
+    mel = power @ tfb._mel_banks(SNIP).astype(np.float64)
+    return np.log(np.maximum(mel, SNIP.energy_floor))
+
+
+def test_tonal_input_every_fp32_path_within_1_5x_of_jax_from_float64():
+    """On a tone the mel bins span ~17 nats, beyond float32's ~24 bits, so
+    no fp32 path meets atol 2e-4 / rtol 1e-4 there, JAX's included: against
+    float64 truth JAX ``fbank_jit`` is off by 1.85e-3, the port's plain
+    ``ops/fbank.fbank`` by 9.3e-4 and the 3xTF32 emulation of
+    ``csrc/fbank.cu`` by 1.46e-3 (measured).  The feature tolerance holds on
+    noise-like input (the tests above); on a tone each port path is held to
+    1.5x JAX's own error instead."""
+    wave = _tone()
+    truth = _float64_truth(wave)
+    err = lambda feats: float(np.abs(np.asarray(feats, np.float64) - truth).max())
+    jax_err = err(_jax_snip(wave))
+    plain_err = err(tfb.fbank(torch.from_numpy(wave), SNIP).numpy())
+    emulated_err = err(_emulated(wave, split=True))
+    assert 1e-4 < jax_err < 1e-2  # the tolerance does not apply: see above
+    assert plain_err <= 1.5 * jax_err
+    assert emulated_err <= 1.5 * jax_err

@@ -28,6 +28,7 @@ FORBIDDEN = ("jax", "laughter_detection_icsi_tpu", "pandas", "lxml")
 bad = sorted(m for m in sys.modules
              if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN)))
 print("MODULES", len(names))
+print("NAMES", " ".join(names))
 print("BAD", bad)
 """
 
@@ -41,6 +42,9 @@ def test_port_never_imports_jax():
     assert "BAD []" in out.stdout, out.stdout
     n = int(re.search(r"MODULES (\d+)", out.stdout).group(1))
     assert n >= 34, out.stdout  # every module of the slices was imported
+    names = re.search(r"NAMES (.*)", out.stdout).group(1).split()
+    for mod in ("runtime.native", "train.checkpoint", "train.loop", "train.optim"):
+        assert f"laughter_detection_icsi_tpu_torch.{mod}" in names, mod
     # Every CLI's --help ran: segment_laughter's, serve's, sweep's, analyse's.
     assert "--input_audio_file" in out.stdout and "--save_probs" in out.stdout
     assert "--transfer_codec" in out.stdout and "--min_length_sweep" in out.stdout
@@ -57,6 +61,8 @@ _IMPORT = re.compile(
 def test_sources_name_no_jax_import():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 27
+    for sub in ("runtime", "train"):
+        assert any(f.parent == PORT / sub for f in files), sub
     offenders = [str(f.relative_to(REPO)) for f in files if _IMPORT.search(f.read_text())]
     assert offenders == []
 
