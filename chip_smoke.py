@@ -18,13 +18,14 @@ Phases (any failure exits non-zero and prints no result):
    silent stretch at the energy floor, 3 whole blocks of frames and one
    frame more among them), a [3, n] batch and a [4, bucket] multichannel
    bucket batch equal to each channel alone, and fused_conv's whole-track
-   shape (18,432 frames for 150 s); on a tone, where the mel bins span
+   shape (18,432 frames for 150 s) and the feature cache's 30,000-frame
+   bucket (phase 10's path); on a tone, where the mel bins span
    ~17 nats and no fp32 path meets that tolerance, the kernel within 1.5x
    JAX ``fbank_jit``'s own error of float64 truth (computed on the card);
    the kernel's, the plain version's and one cuBLAS matmul's times at the
-   main-path bucket and at the whole track, beside the 3xTF32 tensor-core
-   bound (the JSON line's ``bound_ms``, at the bucket) and the fp32
-   CUDA-core one (printed only);
+   main-path bucket, the whole track and the cache's bucket, beside the
+   3xTF32 tensor-core bound (the JSON line's ``bound_ms``, at the bucket)
+   and the fp32 CUDA-core one (printed only);
 4. main path — full-width ``resnet_base`` ResNetBigger (numpy-seeded
    weights in a ``.ckpt.npz``) segments ~150 s of synthetic int16 audio
    through the port's CLI on ``cuda``; the kernel must launch once per
@@ -88,10 +89,33 @@ Phases (any failure exits non-zero and prints no result):
    within 1e-4 of an uninterrupted run; (d) the trained checkpoint through
    ``cli/segment_laughter`` on the card: finite probabilities, TextGrids
    equal to the smoothing of ``LaughterPipeline`` with those weights;
-   (e) train steps per second at B = 32 and 1024 (best of 3 x 50 steps,
-   CUDA events), peak memory, and the device time of one step by region
+   (e) train steps per second at B = 32 and 1024 (best of 3 x 50 and 3 x
+   20 steps, CUDA events), peak memory, and the device time of one step by region
    (forward, backward, optimizer) and kind (convs, the rest);
-10. the card, one JSON line of the kernels (the fbank kernel at the main
+10. training from a corpus — phase 8's corpus (Bro012 in train, Bmr021
+   and Bns001 in dev, Bmr013 in test) through the port's three training
+   CLIs on the card: (a) ``cli/create_data_df`` in structured mode at 200
+   laugh and 200 non-laugh samples a laugh (a train split of 29,600 rows):
+   every split's non-laugh rows the 70/10/20 silence/noise/speech mix and
+   its meetings its own; (b) ``cli/compute_features --device cuda`` over
+   every split: one fbank launch per 30,000-frame bucket of every track, a
+   cached track (two buckets, the last partial) within TOL of the plain
+   featurizer on the same PCM on the card, and a second run featurizes
+   nothing; (c) ``cli/train --config resnet_base`` for one epoch (925
+   steps of 32, a log point with validation at step 900) streamed
+   (``--device_cache off``), resident (``on``) and resident with
+   ``--steps_per_dispatch 4``, under cuDNN deterministic: the three
+   checkpoints within 1e-6, the resident runs naming their row count; (d)
+   the streamed run stopped by SIGTERM before step 401 and resumed through
+   the CLI (``skip_assembly``) within 1e-6 of the uninterrupted one; (e)
+   the trained checkpoint through ``cli/segment_laughter``, its TextGrid
+   equal to the smoothing of ``LaughterPipeline`` with those weights; (f)
+   train steps per second streamed and resident at B = 32 and 1024 (host
+   clock, best of 3), each with the device's busy share and region
+   breakdown (torch.profiler), the host time to assemble one streamed
+   batch, the resident split's bytes, build and upload time, and peak
+   memory;
+11. the card, one JSON line of the kernels (the fbank kernel at the main
    path's bucket; ``launches`` counted on phase 8's sweep, the launches of
    every path beside them), then the result line.
 
@@ -324,6 +348,7 @@ def phase_kernel(card, peak, block_frames: int):
     track_frames = -(-host_prep.num_frames(16000 * SECONDS) // 6144) * 6144
     track_n = track_wave_len(track_frames)
     check((track_frames, track_n) == (18_432, 2_949_360), f"whole track {track_frames}, {track_n}")
+    train_n = 29_999 * snip.frame_shift_samples + snip.frame_length_samples
     silent = noise(32000)
     silent[6000:22000] = 0.0  # whole frames of silence: power at the floor
     tile = block_frames * 3 * FEAT.frame_shift_samples  # 3 whole blocks of frames
@@ -343,9 +368,13 @@ def phase_kernel(card, peak, block_frames: int):
         ("multichannel bucket batch [4, 999120]", noise((4, bucket_n)), snip),
         (f"fused_conv whole track, {track_frames} frames n={track_n}",
          speechlike(track_n, seed=4) / np.float32(32768), snip),
+        # The feature cache's bucket (data/feature_cache.py): 30,000 frames.
+        (f"feature cache bucket, 30000 frames n={train_n}",
+         speechlike(train_n, seed=5) / np.float32(32768), snip),
     ]
     timed = {"main-path bucket n=999120": "the bucket",
-             f"fused_conv whole track, {track_frames} frames n={track_n}": "the whole track"}
+             f"fused_conv whole track, {track_frames} frames n={track_n}": "the whole track",
+             f"feature cache bucket, 30000 frames n={train_n}": "the feature cache's bucket"}
     max_err = 0.0
     times = {}
     with strict_fp32():
@@ -1002,6 +1031,7 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
                               "toolkit's machine): the sweep would decode shorten in numpy")
     t0 = time.perf_counter()
     tdir, adir, paths = write_sweep_corpus(work / "corpus", ctx["cache"])
+    ctx["corpus"] = (tdir, adir, paths)  # phase 10 trains on it
     metas = {m: [audio.info(p) for p in ps] for m, ps in paths.items()}
     audio_s = sum(i.duration for ms in metas.values() for i in ms)
     n_chans = sum(len(ps) for ps in paths.values())
@@ -1421,7 +1451,8 @@ def phase_train(card, work: Path, ctx: dict) -> int:
         t = Trainer(model(0.5), device=DEVICE)
         opt = t.init()
         bb = batch(b)
-        gens = [step_generator(1, s, DEVICE) for s in range(50)]
+        n_steps = 50 if b <= 64 else 20  # 20 of ~0.28 s at B = 1024 keep the run short
+        gens = [step_generator(1, s, DEVICE) for s in range(n_steps)]
         for s in range(3):
             opt, _ = t.train_batch(opt, bb, gens[s])
         torch.cuda.synchronize()
@@ -1431,14 +1462,14 @@ def phase_train(card, work: Path, ctx: dict) -> int:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             start.record()
-            for s in range(50):
+            for s in range(n_steps):
                 opt, _ = t.train_batch(opt, bb, gens[s])
             end.record()
             end.synchronize()
-            ms.append((start.elapsed_time(end) / 50, 1e3 * (time.perf_counter() - t0) / 50))
+            ms.append((start.elapsed_time(end) / n_steps, 1e3 * (time.perf_counter() - t0) / n_steps))
         best = min(ms)
         peak = torch.cuda.max_memory_allocated()
-        print(f"(e) B={b} on {card}: {1e3 / best[0]:.2f} train steps per second (best of 3 x 50: "
+        print(f"(e) B={b} on {card}: {1e3 / best[0]:.2f} train steps per second (best of 3 x {n_steps}: "
               f"{', '.join(f'{d:.3f}' for d, _ in ms)} ms a step between CUDA events; host clock "
               f"{best[1]:.3f} ms); {b * 1e3 / best[0]:.0f} windows per second; peak device memory "
               f"{peak / 2**30:.3f} GiB")
@@ -1446,12 +1477,298 @@ def phase_train(card, work: Path, ctx: dict) -> int:
     return launches
 
 
-def train_breakdown(what: str, step, trace_path: Path, steps: int = 5) -> None:
+#: Phase 10's tables: laugh and non-laugh samples per laugh (structured mode).
+#: Bro012's 74 laughs give a train split of 29,600 rows: 925 steps of the
+#: preset's batch of 32, one log point (step 900) in the epoch.
+CORPUS_SAMPLES = (200, 200)
+MIN_TRAIN_ROWS = 16_000
+
+
+def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
+    """Training from a corpus through the three CLIs (see the module
+    docstring, phase 10); returns compute_features's fbank launches and the
+    cached track's largest error against the plain featurizer."""
+    import contextlib
+    import io
+    import itertools
+    import signal
+
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep, inference
+    from laughter_detection_icsi_tpu_torch.cli import compute_features, create_data_df
+    from laughter_detection_icsi_tpu_torch.cli import segment_laughter as seg_cli
+    from laughter_detection_icsi_tpu_torch.cli import train as train_cli
+    from laughter_detection_icsi_tpu_torch.config import (
+        FEAT, MODEL_MAP, PARTITIONS, split_of_meeting)
+    from laughter_detection_icsi_tpu_torch.data import (
+        FeatureCache, LadDataset, ResidentLadDataset, load_split_df)
+    from laughter_detection_icsi_tpu_torch.data.dataset import _epoch_slices
+    from laughter_detection_icsi_tpu_torch.eval import textgrid
+    from laughter_detection_icsi_tpu_torch.eval import transcript as transcript_lib
+    from laughter_detection_icsi_tpu_torch.models import zoo
+    from laughter_detection_icsi_tpu_torch.ops import fbank as fbank_ops
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, smoothing
+    from laughter_detection_icsi_tpu_torch.runtime import native
+    from laughter_detection_icsi_tpu_torch.train import Trainer
+    from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
+
+    tdir, adir, paths = ctx["corpus"]
+    root = work / "train_data"
+    dfs, feats = root / "data_dfs", root / "feats"
+    preset = MODEL_MAP["resnet_base"]
+
+    def cli(main, argv):
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = main(argv)
+        check(rc == 0, f"{main.__module__} returned {rc}: {text.getvalue()[-800:]}")
+        return text.getvalue(), time.perf_counter() - t0
+
+    # (a) The tables.
+    n_laugh, n_non = CORPUS_SAMPLES
+    out, took = cli(create_data_df.main, ["--transcript_dir", str(tdir), "--data_dfs_dir", str(dfs),
+                                          "--num_laugh_samples", str(n_laugh),
+                                          "--num_non_laugh_samples", str(n_non)])
+    tables = {split: load_split_df(str(dfs), split) for split in PARTITIONS}
+    store = transcript_lib.TranscriptStore(str(tdir))
+    laughs = {split: sum(1 for s in store.laugh_only if split_of_meeting(s.meeting_id) == split)
+              for split in PARTITIONS}
+    kinds = {"speech": {(s.meeting_id, s.chan_id, s.start, s.length) for s in store.speech},
+             "noise": {(s.meeting_id, s.chan_id, s.start, s.length) for s in store.noise}}
+    silence_n, noise_n = math.floor(n_non * 0.7), math.floor(n_non * 0.1)
+    want_mix = {"silence": silence_n, "noise": noise_n, "speech": n_non - silence_n - noise_n}
+    for split, rows in tables.items():
+        meetings = {r["meeting_id"] for r in rows}
+        check(bool(meetings) and meetings <= set(PARTITIONS[split]),
+              f"{split}: meetings {sorted(meetings)} not all its own")
+        check(all(r["audio_path"].split("/")[0] == r["meeting_id"] for r in rows),
+              f"{split}: an audio_path names another meeting")
+        got_mix = {"silence": 0, "noise": 0, "speech": 0}
+        for r in rows:
+            if r["label"] == 0:
+                key = (r["meeting_id"], r["chan_id"], r["start"], r["duration"])
+                got_mix[next((k for k, v in kinds.items() if key in v), "silence")] += 1
+        check(got_mix == {k: v * laughs[split] for k, v in want_mix.items()}
+              and sum(r["label"] == 1 for r in rows) == n_laugh * laughs[split],
+              f"{split}: mix {got_mix} for {laughs[split]} laughs, want {want_mix} each")
+    n_train = len(tables["train"])
+    check(n_train >= MIN_TRAIN_ROWS, f"train split {n_train} rows < {MIN_TRAIN_ROWS}")
+    print(f"(a) cli/create_data_df, {n_laugh} laugh + {n_non} non-laugh samples a laugh, in "
+          f"{took:.2f} s: " + ", ".join(f"{s} {len(r)} rows ({laughs[s]} laughs; meetings "
+                                       f"{sorted({x['meeting_id'] for x in r})})"
+                                       for s, r in tables.items())
+          + f"; every split's non-laugh mix is {want_mix['silence']}/{want_mix['noise']}/"
+          f"{want_mix['speech']} silence/noise/speech a laugh (70/10/20), every meeting its split's")
+
+    # (b) Features: one launch a 30,000-frame bucket of every track.
+    argv = ["--audio_dir", str(adir), "--transcript_dir", str(tdir), "--output_dir", str(feats),
+            "--device", DEVICE]
+    metas = {(m, f"chan{c}"): native.info(p) for m, ps in paths.items() for c, p in enumerate(ps)}
+    buckets = sum(-(-host_prep.num_frames(i.num_samples) // 30000) for i in metas.values())
+    fbank_cuda.launches = 0
+    out, took = cli(compute_features.main, argv)
+    launches = fbank_cuda.launches
+    check(f"done: {len(metas)} featurized, 0 cached, 0 missing" in out, f"compute_features: {out[-300:]}")
+    check(launches == buckets, f"compute_features: {launches} fbank launches for {buckets} buckets")
+    audio_s = sum(i.duration for i in metas.values())
+    print(f"(b) cli/compute_features --device {DEVICE}: {len(metas)} tracks, {audio_s:.0f} audio-s, "
+          f"in {took:.2f} s ({audio_s / took:.0f} audio-s per s, decode included); fbank launched "
+          f"{launches} times = the tracks' {buckets} buckets of 30,000 frames")
+    cache = FeatureCache(str(feats))
+    m, c = "Bmr021", "chan3"  # two buckets, the second partial; 777 samples short
+    wave, _ = native.read(paths[m][3])
+    padded, t = host_prep.host_pad_waveform(wave, FEAT)
+    with torch.no_grad(), inference.strict_fp32():
+        plain = fbank_ops.fbank(torch.from_numpy(padded.astype(np.float32)).to(DEVICE),
+                                host_prep.snip_cfg(FEAT)).cpu().numpy()
+    cached = np.asarray(cache.track(m, c))
+    check(cached.shape == plain.shape == (t, FEAT.num_filters), f"{m}/{c}: {cached.shape} vs {plain.shape}")
+    err = np.abs(cached - plain)
+    check(bool(np.all(err <= TOL["atol"] + TOL["rtol"] * np.abs(plain))),
+          f"{m}/{c}: cached features {err.max():.3e} from the plain featurizer")
+    print(f"    cached {m}/{c} ({t} frames) vs the plain featurizer on the same PCM on {DEVICE}: "
+          f"max |diff| {err.max():.3e} (atol 2e-4, rtol 1e-4)")
+    fbank_cuda.launches = 0
+    out, _ = cli(compute_features.main, argv)
+    check(f"done: 0 featurized, {len(metas)} cached, 0 missing" in out and fbank_cuda.launches == 0,
+          f"second compute_features: {out[-200:]}, {fbank_cuda.launches} launches")
+    print(f"    a second run featurized nothing ({len(metas)} cached, 0 launches)")
+
+    # (c) One epoch three ways, (d) SIGTERM mid-epoch and resume.
+    base = ["--config", "resnet_base", "--data_root", str(root), "--data_dfs_dir", str(dfs),
+            "--feats_dir", str(feats), "--signals_dir", str(adir), "--device", DEVICE,
+            "--seed", "3"]
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark, signal.getsignal(signal.SIGTERM),
+             signal.getsignal(signal.SIGINT))
+    real_step = Trainer.train_batch
+    steps = -(-n_train // preset.batch_size)
+    cut_at = min(400, steps // 2)
+    runs = {}
+    try:
+        cudnn.deterministic, cudnn.benchmark = True, False  # the runs take the same algorithms
+        for name, flags in (("streamed", ["--device_cache", "off"]),
+                            ("resident", ["--device_cache", "on"]),
+                            ("resident_k4", ["--device_cache", "on", "--steps_per_dispatch", "4"])):
+            fbank_cuda.launches = 0
+            out, took = cli(train_cli.main, base + ["--checkpoint_dir", str(root / name), *flags])
+            check(fbank_cuda.launches == 0, f"train {name}: featurized again")
+            resident = re.search(r"device cache: (\d+) train windows resident", out)
+            check((resident is not None) == (name != "streamed")
+                  and (resident is None or int(resident[1]) == n_train),
+                  f"train {name}: resident line {resident and resident[0]}")
+            runs[name] = (ckpt_lib.load_checkpoint(str(root / name / "last.ckpt.npz")), took, out)
+        calls = []
+
+        def signalling(self, *a, **kw):
+            calls.append(1)
+            if len(calls) == cut_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return real_step(self, *a, **kw)
+
+        Trainer.train_batch = signalling
+        out, cut_s = cli(train_cli.main, base + ["--checkpoint_dir", str(root / "cut"), "--device_cache", "off"])
+        Trainer.train_batch = real_step
+        check(f"preempted at step {cut_at}" in out, f"the SIGTERM run: {out[-300:]}")
+        stopped = ckpt_lib.load_checkpoint(str(root / "cut" / "last.ckpt.npz"))
+        out, resume_s = cli(train_cli.main, base + ["--checkpoint_dir", str(root / "cut"), "--device_cache", "off"])
+        check(f"resumed from step {cut_at} (epoch 0)" in out, f"the resumed run: {out[-300:]}")
+        runs["resumed"] = (ckpt_lib.load_checkpoint(str(root / "cut" / "last.ckpt.npz")), resume_s, out)
+    finally:
+        Trainer.train_batch = real_step
+        cudnn.deterministic, cudnn.benchmark = saved[:2]
+        signal.signal(signal.SIGTERM, saved[2])
+        signal.signal(signal.SIGINT, saved[3])
+    ref = runs["streamed"][0]
+    log = preset.log_frequency
+    val = re.search(rf"step {log}: .*val_loss=([\d.]+)", runs["streamed"][2])
+    check((val is not None) == (steps >= log) and ref["global_step"] == steps and ref["epoch"] == 1,
+          f"streamed run: global_step {ref['global_step']} (want {steps}), epoch {ref['epoch']}, "
+          f"log line at step {log}: {val}")
+    diffs = {}
+    for name in ("resident", "resident_k4", "resumed"):
+        got = runs[name][0]
+        check((got["global_step"], got["epoch"]) == (steps, 1), f"{name}: counters")
+        pairs = [(v, ref["state_dict"][k]) for k, v in got["state_dict"].items()]
+        pairs += [(getattr(got["opt_state"], m)[k], getattr(ref["opt_state"], m)[k])
+                  for m in ("mu", "nu") for k in ref["opt_state"].mu]
+        diffs[name] = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+        check(diffs[name] <= 1e-6 and int(got["opt_state"].step) == steps,
+              f"{name} checkpoint {diffs[name]:.3e} from the streamed one (weights, buffers, "
+              f"Adam moments), Adam step {int(got['opt_state'].step)}")
+    print(f"(c) cli/train --config resnet_base --device {DEVICE}, one epoch of {n_train} rows = "
+          f"{steps} steps of {preset.batch_size} (dropout 0.5; "
+          + (f"log point at step {log}, val loss {float(val[1]):.4f}" if val else "no log point")
+          + f"; cuDNN deterministic): streamed {runs['streamed'][1]:.1f} s, "
+          f"resident {runs['resident'][1]:.1f} s ({n_train} train windows resident), resident "
+          f"with --steps_per_dispatch 4 {runs['resident_k4'][1]:.1f} s; checkpoints (weights, "
+          f"buffers, Adam moments) vs streamed: "
+          f"resident {diffs['resident']:.3e}, K=4 {diffs['resident_k4']:.3e} (limit 1e-6)")
+    print(f"(d) SIGTERM before step {cut_at + 1}: stopped at (global_step, epoch_step) "
+          f"({stopped['global_step']}, {stopped['epoch_step']}) in {cut_s:.1f} s; resumed through "
+          f"the CLI (skip_assembly {cut_at}) in {resume_s:.1f} s: {diffs['resumed']:.3e} from "
+          f"the uninterrupted run (limit 1e-6)")
+
+    # (e) The trained checkpoint through the segment CLI.
+    ck = ckpt_lib.resolve_checkpoint(str(root / "resident"))
+    trained = zoo.build(preset.model, dropout_rate=0.0, linear_layer_size=preset.linear_layer_size,
+                        filter_sizes=preset.filter_sizes)
+    trained.load_state_dict(ckpt_lib.load_checkpoint(ck)["state_dict"], strict=True)
+    pipe = inference.LaughterPipeline(trained, settings=inference.settings_from_flags(device=DEVICE),
+                                      device=DEVICE)
+    probs, _ = pipe.probs_for_file(str(ctx["wav"]))
+    check_probs(probs, ctx["probs"].shape, "corpus-trained checkpoint")
+    thr = midway_threshold(probs)
+    seg_out = work / "out_corpus_trained"
+    rc = seg_cli.main(["--model_path", str(root / "resident"), "--input_audio_file", str(ctx["wav"]),
+                       "--output_dir", str(seg_out), "--thresholds", f"{thr}", "--min_lengths", "0.2",
+                       "--save_to_textgrid", "True", "--save_to_audio_files", "False",
+                       "--device", DEVICE])
+    check(rc == 0, f"segment CLI on the corpus-trained checkpoint returned {rc}")
+    got = textgrid.read_laughter_intervals(str(seg_out / f"t_{thr}" / "l_0.2" / "meeting.TextGrid"))
+    check(got == smoothing.get_laughter_instances(probs, [thr], [0.2])[(thr, 0.2)],
+          "the corpus-trained checkpoint's TextGrid differs from LaughterPipeline's")
+    print(f"(e) {Path(ck).name} of the resident run through cli/segment_laughter --device {DEVICE}: "
+          f"probabilities in [{probs.min():.4f}, {probs.max():.4f}]; {len(got)} instances at "
+          f"threshold {thr}, equal to the smoothing of LaughterPipeline with those weights")
+
+    # (f) Steps per second, streamed and resident.
+    ds = LadDataset(tables["train"], cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ResidentLadDataset(ds, device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    host = res.feats.cpu()
+    t0 = time.perf_counter()
+    res.feats.copy_(host)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    nbytes = res.feats.numel() * res.feats.element_size()
+    print(f"(f) resident train split: {nbytes / 2**30:.3f} GiB of float32 features ({n_train} x "
+          f"100 x 44); built in {build_s:.3f} s (host assembly and upload), the upload alone "
+          f"{1e3 * upload_s:.1f} ms ({nbytes / upload_s / 1e9:.2f} GB/s, pageable host memory)")
+    del host
+
+    def model_trainer():
+        m = zoo.build(preset.model, dropout_rate=0.5, linear_layer_size=preset.linear_layer_size,
+                      filter_sizes=preset.filter_sizes, seed=5)
+        return Trainer(m, device=DEVICE)
+
+    for b in TRAIN_SIZES:
+        n_steps = 30 if b <= 64 else 10
+        order = itertools.chain.from_iterable(
+            _epoch_slices(n_train, b, True, e, True) for e in itertools.count())
+        idx_rows = [next(order) for _ in range(3 * n_steps + 10)]
+        assemble_ms = []
+        for idx in idx_rows[:10]:
+            t0 = time.perf_counter()
+            ds._assemble(idx)
+            assemble_ms.append(1e3 * (time.perf_counter() - t0))
+        print(f"(f) host assembly of one streamed batch of {b} rows (LadDataset._assemble): "
+              f"{np.median(assemble_ms):.3f} ms (median of 10)")
+        for name in ("streamed", "resident"):
+            t = model_trainer()
+            opt = t.init()
+            if name == "streamed":
+                it = itertools.chain.from_iterable(ds.batches(b, seed=e, drop_remainder=True)
+                                                   for e in itertools.count())
+                step = lambda s: t.train_batch(opt, next(it), t.generator(1, s))
+            else:
+                rows = iter(itertools.cycle(idx_rows))
+                step = lambda s: t.train_batch_resident(opt, res, next(rows), 1, s)
+            for s in range(3):
+                opt, _ = step(s)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            rates = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                for s in range(n_steps):
+                    opt, _ = step(s)
+                torch.cuda.synchronize()
+                rates.append(n_steps / (time.perf_counter() - t0))
+            peak = torch.cuda.max_memory_allocated()
+            busy = train_breakdown(f"{name} B={b}", lambda: step(0), work / f"corpus_{name}_{b}.trace.json")
+            print(f"(f) {name} B={b} on {card}: {max(rates):.2f} train steps per second (best of 3 x "
+                  f"{n_steps}, host clock: {', '.join(f'{r:.2f}' for r in rates)}); device busy "
+                  + (f"{100 * busy:.1f}%" if busy is not None else "not measured")
+                  + f" of 5 profiled steps; peak device memory {peak / 2**30:.3f} GiB")
+            if name == "streamed":
+                it = None  # stops the prefetch thread
+    return dict(launches=launches, max_err=float(err.max()))
+
+
+def train_breakdown(what: str, step, trace_path: Path, steps: int = 5):
     """Profile ``steps`` train steps (torch.profiler) and print the device's
     busy share of their wall and its time by region (the Trainer's
     'train/forward', 'train/backward', 'train/optimizer' annotations) and
     kind (cuDNN convolutions, everything else).  A kernel belongs to the
-    region whose host range holds its launch (matched by correlation id)."""
+    region whose host range holds its launch (matched by correlation id).
+    Returns the busy share (None when the profiler recorded no device
+    activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1468,7 +1785,7 @@ def train_breakdown(what: str, step, trace_path: Path, steps: int = 5) -> None:
     dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not dev:
         print(f"  train step breakdown ({what}): not measured (no device activity recorded)")
-        return
+        return None
     regions = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
                      if e.get("ph") == "X" and e.get("cat") == "user_annotation"
                      and str(e.get("name", "")).startswith("train/"))
@@ -1492,6 +1809,7 @@ def train_breakdown(what: str, step, trace_path: Path, steps: int = 5) -> None:
           f"{total:.2f} ms = {total / steps:.3f} ms a step:")
     for (region, kind), ms in sorted(table.items(), key=lambda kv: -kv[1]):
         print(f"    {region:16s} {kind:9s} {ms / steps:8.3f} ms a step = {100 * ms / total:5.1f}%")
+    return busy_us / 1e3 / wall_ms
 
 
 def device_breakdown(what: str, fn, best_s: float, trace_path: Path) -> None:
@@ -1553,26 +1871,30 @@ def main() -> int:
     work = REPO / "build" / "chip_smoke" / "run"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
+    t_start = time.perf_counter()
+    header = lambda name: print(f"== {name} == ({time.perf_counter() - t_start:.1f} s in)", flush=True)
     try:
-        print("== 1. device ==")
+        header("1. device")
         card, kind, peak = phase_device()
-        print("== 2. build ==")
+        header("2. build")
         block_frames = phase_build()
-        print("== 3. fbank kernel vs its plain version ==")
+        header("3. fbank kernel vs its plain version")
         entry = phase_kernel(card, peak, block_frames)
-        print("== 4. main path ==")
+        header("4. main path")
         ctx = phase_main_path(card, work)
-        print("== 5. fused_conv ==")
+        header("5. fused_conv")
         fused = phase_fused_conv(card, work, ctx)
-        print("== 6. streaming and serve ==")
+        header("6. streaming and serve")
         streamed = phase_streaming(card, work, ctx)
-        print("== 7. multichannel ==")
+        header("7. multichannel")
         batched = phase_multichannel(card, work, ctx)
-        print("== 8. corpus sweep ==")
+        header("8. corpus sweep")
         ctx["cache"] = work.parent / "cache"
         swept = phase_sweep(card, work, ctx)
-        print("== 9. training ==")
+        header("9. training")
         trained = phase_train(card, work, ctx)
+        header("10. training from a corpus")
+        featurized = phase_corpus_train(card, work, ctx)
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -1584,15 +1906,18 @@ def main() -> int:
     by_path = {"windows": ctx["launches"], "fused_conv": fused, "serve": streamed,
                "multichannel": batched, "sweep": swept["launches"],
                "sweep_packed": swept["packed"], "sweep_fused_conv": swept["fused"],
-               "training_features": trained}
+               "training_features": trained, "compute_features": featurized["launches"]}
     print(f"fbank launches per path: windows {ctx['launches']} ({ctx['n_buckets']} buckets), "
           f"fused_conv {fused} (one file), serve replay {streamed} ({ctx['n_buckets']} buckets "
           f"+ warm-up), multichannel {batched} (bucket batches of 4 channels), corpus sweep "
-          f"{swept['launches']} (raw), {swept['packed']} (packed), {swept['fused']} (fused_conv)")
-    entry["max_abs_err"] = max(entry["max_abs_err"], swept["max_err"])
+          f"{swept['launches']} (raw), {swept['packed']} (packed), {swept['fused']} (fused_conv), "
+          f"training features {trained}, compute_features {featurized['launches']} (30,000-frame "
+          f"buckets)")
+    entry["max_abs_err"] = max(entry["max_abs_err"], swept["max_err"], featurized["max_err"])
     entry = {"name": entry.pop("name"), "route": entry.pop("route"),
              "source": entry.pop("source"), "replaces": entry.pop("replaces"),
              "launches": swept["launches"], **entry, "launches_by_path": by_path}
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [entry]}))
     print(json.dumps({"ok": True, "device": {

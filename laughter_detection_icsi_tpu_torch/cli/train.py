@@ -1,0 +1,271 @@
+"""Training CLI for the PyTorch port (reference train.py:68-135 flag surface).
+
+The JAX package's ``cli/train.py`` plus ``--device`` (default ``cuda``):
+train a preset from the ``<split>_df.csv`` tables (``cli/create_data_df``)
+on features from the feature cache; tracks the tables need but the cache
+lacks are featurized first from ``<data_root>/signals/<meeting>/<chan>.sph``
+(on the card by the fbank kernel).  ``--device_cache`` keeps both splits
+resident on the device (``data.ResidentLadDataset``) and
+``--steps_per_dispatch K`` hands K of its steps to one call.  Run it as
+
+    python -m laughter_detection_icsi_tpu_torch.cli.train --config resnet_base \\
+        --checkpoint_dir checkpoints/resnet_base --data_root data \\
+        --data_dfs_dir data_dfs --device cuda [--device_cache on]
+
+Each run trains ``--num_epochs`` more epochs from the checkpoint it
+resumes.  The reference's torch-specific flags (--torch_device,
+--num_workers, --lhotse_dir, --include_words, --train_on_noisy_audioset)
+are parsed and ignored with a note.  ``--data_parallel`` and the
+multi-process flags (ROADMAP item 7) and ``--precision bfloat16`` (item 6)
+parse, then raise an error naming their item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+import sys
+import time
+from pathlib import Path
+from typing import List, Optional
+
+COMPAT_FLAGS = ("torch_device", "include_words", "train_on_noisy_audioset", "num_workers",
+                "lhotse_dir")
+MULTI_PROCESS_FLAGS = ("coordinator_address", "num_processes", "process_id", "cpu_collectives")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--config", type=str, required=True)
+    p.add_argument("--checkpoint_dir", type=str, required=True)
+    p.add_argument("--data_root", type=str, required=True)
+    p.add_argument("--num_epochs", type=int, default=1,
+                   help="epochs to train IN THIS RUN; resumed runs train "
+                        "this many MORE (reference-relative semantics)")
+    p.add_argument("--data_dfs_dir", type=str, default="data_dfs")
+    p.add_argument("--batch_size", type=str, default=None)
+    p.add_argument("--dropout_rate", type=str, default="0.5")
+    p.add_argument("--gradient_accumulation_steps", type=str, default="1")
+    # Accepted for compatibility, unused (the reference never uses
+    # --num_workers either).
+    p.add_argument("--lhotse_dir", type=str, default="lhotse")
+    p.add_argument("--torch_device", type=str, default=None)
+    p.add_argument("--num_workers", type=str, default="8")
+    p.add_argument("--include_words", type=str, default=None)
+    p.add_argument("--train_on_noisy_audioset", type=str, default=None)
+    p.add_argument("--feats_dir", type=str, default=None,
+                   help="feature cache dir (default <data_root>/feats_tpu, the "
+                        "JAX package's, so both packages share one cache)")
+    p.add_argument("--signals_dir", type=str, default=None,
+                   help="audio root with <meeting>/<chan>.sph "
+                        "(default <data_root>/signals)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard batches over several devices (not ported: "
+                        "ROADMAP item 7)")
+    p.add_argument("--transfer_dtype", type=str, default=None, choices=["bfloat16"],
+                   help="ship feature batches to the device as bfloat16 (half "
+                        "the host->device bytes; inputs are bf16-rounded, "
+                        "parameters and gradients stay float32); with "
+                        "--device_cache, the resident features' dtype")
+    p.add_argument("--precision", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="training compute precision; float32 (bfloat16 is "
+                        "not ported: ROADMAP item 6)")
+    p.add_argument("--device_cache", type=str, default="auto", choices=["auto", "on", "off"],
+                   help="keep both splits' features resident on the device "
+                        "and gather batches there (no per-step feature "
+                        "upload; data.ResidentLadDataset).  'auto' turns it "
+                        "on on cuda when the splits fit "
+                        "--device_cache_budget_gb")
+    p.add_argument("--device_cache_budget_gb", type=float, default=4.0,
+                   help="most device memory the 'auto' device cache may claim")
+    p.add_argument("--steps_per_dispatch", type=int, default=1,
+                   help="K consecutive resident train steps from one call "
+                        "(needs --device_cache and grad_accum 1; the numbers "
+                        "of K single steps)")
+    p.add_argument("--val_batches_per_log", type=int, default=10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--distributed", action="store_true",
+                   help="multi-process training (not ported: ROADMAP item 7)")
+    for flag in MULTI_PROCESS_FLAGS:
+        p.add_argument(f"--{flag}", type=str, default=None,
+                       help="multi-process training (not ported: ROADMAP item 7)")
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the training run here")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to train on (default: cuda)")
+    return p
+
+
+def _ensure_features(cache, rows, signals_dir: str, device) -> None:
+    """Featurize every (meeting, chan) track the table needs and the cache
+    lacks (stage 1 of reference compute_features.py:66-112)."""
+    from laughter_detection_icsi_tpu_torch.data.audio import find_track_audio
+
+    for meeting_id, chan_id in sorted({(r["meeting_id"], r["chan_id"]) for r in rows}):
+        if cache.has(meeting_id, chan_id):
+            continue
+        path = find_track_audio(signals_dir, meeting_id, chan_id)
+        if path is None:
+            raise FileNotFoundError(
+                f"no cached features and no audio ({chan_id}.sph or .wav) "
+                f"for {meeting_id} under {signals_dir}")
+        print(f"featurizing {meeting_id}/{chan_id} ...", flush=True)
+        cache.add_audio_file(meeting_id, chan_id, path, device=device)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    # Against the parser's default: num_workers and lhotse_dir have truthy
+    # defaults.
+    for flag in COMPAT_FLAGS:
+        if getattr(args, flag) != parser.get_default(flag):
+            print(f"note: --{flag} is accepted for compatibility and ignored")
+
+    from laughter_detection_icsi_tpu_torch.config import MODEL_MAP
+
+    if args.config not in MODEL_MAP:
+        parser.error(f"--config: unknown preset {args.config!r} (choose from {sorted(MODEL_MAP)})")
+    if args.batch_size is not None:
+        # type=str for the reference's flags: parsed and checked here.
+        try:
+            bs = int(args.batch_size)
+        except ValueError:
+            parser.error(f"--batch_size: not an integer: {args.batch_size!r}")
+        if bs < 1:
+            parser.error(f"--batch_size must be >= 1, got {bs}")
+
+    from laughter_detection_icsi_tpu_torch.inference import _not_ported, resolve_device
+
+    # Refused before any featurization, which can take long.
+    if args.data_parallel:
+        raise _not_ported("--data_parallel (data-parallel training)", 7)
+    if args.distributed or any(getattr(args, f) is not None for f in MULTI_PROCESS_FLAGS):
+        raise _not_ported("multi-process training (--distributed and its flags)", 7)
+    if args.precision == "bfloat16":
+        raise _not_ported("--precision bfloat16 (bf16 training)", 6)
+    device = resolve_device(args.device)
+
+    from laughter_detection_icsi_tpu_torch.data import (
+        FeatureCache, LadDataset, ResidentLadDataset, load_split_df)
+    from laughter_detection_icsi_tpu_torch.models import zoo
+    from laughter_detection_icsi_tpu_torch.train import Adam, TrainLoop, Trainer
+    from laughter_detection_icsi_tpu_torch.utils.profiling import trace
+
+    preset = MODEL_MAP[args.config]
+    batch_size = int(args.batch_size) if args.batch_size is not None else preset.batch_size
+    dropout = float(args.dropout_rate)
+    grad_accum = int(args.gradient_accumulation_steps)
+    ckpt_dir = Path(args.checkpoint_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+
+    data_dfs_dir = args.data_dfs_dir
+    if not os.path.isabs(data_dfs_dir):
+        data_dfs_dir = os.path.join(args.data_root, data_dfs_dir)
+    feats_dir = args.feats_dir or os.path.join(args.data_root, "feats_tpu")
+    signals_dir = args.signals_dir or os.path.join(args.data_root, "signals")
+
+    cache = FeatureCache(feats_dir)
+    train_df = load_split_df(data_dfs_dir, "train")
+    dev_df = load_split_df(data_dfs_dir, "dev")
+    _ensure_features(cache, train_df, signals_dir, device)
+    _ensure_features(cache, dev_df, signals_dir, device)
+    train_ds = LadDataset(train_df, cache)
+    dev_ds = LadDataset(dev_df, cache)
+
+    # The resident feature cache: both splits uploaded once, each batch a
+    # gather on the device.
+    use_cache = False
+    if args.device_cache != "off":
+        est = (ResidentLadDataset.estimated_nbytes(train_ds, args.transfer_dtype)
+               + ResidentLadDataset.estimated_nbytes(dev_ds, args.transfer_dtype))
+        on_card = device.type == "cuda"
+        fits = est <= args.device_cache_budget_gb * 1e9
+        use_cache = args.device_cache == "on" or (on_card and fits)
+        if args.device_cache == "auto" and not use_cache and on_card:
+            print(f"device_cache auto: split needs {est / 1e9:.2f} GB > budget "
+                  f"{args.device_cache_budget_gb} GB; streaming from host")
+
+    model = zoo.build(preset.model, dropout_rate=dropout,
+                      linear_layer_size=preset.linear_layer_size,
+                      filter_sizes=preset.filter_sizes, seed=args.seed)
+    trainer = Trainer(model=model, optimizer=Adam(), grad_accum=grad_accum,
+                      transfer_dtype=args.transfer_dtype, device=device)
+    if use_cache:
+        t0 = time.perf_counter()
+        train_ds = ResidentLadDataset(train_ds, args.transfer_dtype, device=device)
+        dev_ds = ResidentLadDataset(dev_ds, args.transfer_dtype, device=device)
+        print(f"device cache: {len(train_ds)} train windows resident on {device} "
+              f"({len(dev_ds)} dev; built in {time.perf_counter() - t0:.2f} s)")
+    opt_state = trainer.init()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"The model has {n_params:,} trainable parameters")
+
+    loop = TrainLoop(
+        trainer=trainer,
+        checkpoint_dir=str(ckpt_dir),
+        log_frequency=preset.log_frequency,
+        val_batches_per_log=args.val_batches_per_log,
+        # the preemption path flushes the metric rows too
+        metrics_path=str(ckpt_dir / "metrics.csv"),
+        steps_per_dispatch=args.steps_per_dispatch,
+    )
+    if args.steps_per_dispatch > 1 and not use_cache:
+        print("note: --steps_per_dispatch groups device-resident batches only; this run "
+              "streams from host (--device_cache off), so steps run one a call")
+    opt_state = loop.resume_if_possible(opt_state)
+    if loop.global_step:
+        print(f"resumed from step {loop.global_step} (epoch {loop.epoch})")
+    loop.install_preemption_handler()  # checkpoint and a clean exit on SIGTERM
+
+    with open(ckpt_dir / "train_params.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["num_train_samples", "num_dev_samples", "batch_size", "log_freq"])
+        w.writerow([len(train_ds), len(dev_ds), batch_size, preset.log_frequency])
+
+    def val_batches(n: int):
+        if use_cache:
+            it = dev_ds.index_batches(batch_size, shuffle=True, seed=loop.global_step)
+        else:
+            it = dev_ds.batches(batch_size, shuffle=True, seed=loop.global_step)
+        out = []
+        for _ in range(n):
+            try:
+                out.append(next(it))
+            except StopIteration:
+                break
+        return out
+
+    t_start = time.perf_counter()
+    # Relative epochs, as the reference: each run trains --num_epochs more
+    # from wherever its checkpoint left off.
+    target_epoch = loop.epoch + args.num_epochs
+    with trace(args.trace_dir):
+        while loop.epoch < target_epoch:
+            if use_cache:
+                epoch_batches = train_ds.index_batches(
+                    batch_size, shuffle=True, seed=args.seed + loop.epoch)
+            else:
+                epoch_batches = train_ds.batches(
+                    batch_size, shuffle=True, seed=args.seed + loop.epoch,
+                    # a mid-epoch resume assembles nothing for the trained batches
+                    skip_assembly=loop.epoch_step)
+            opt_state, mean_loss = loop.run_epoch(
+                opt_state, epoch_batches, val_batches_fn=val_batches,
+                seed=args.seed * 1000 + loop.epoch)
+            if loop.preempted:
+                print("preemption requested: checkpoint saved, exiting cleanly")
+                break
+            print(f"epoch {loop.epoch} done: mean train loss {mean_loss:.4f}")
+    if args.trace_dir:
+        print(f"profiler trace written to {args.trace_dir}")
+    print(f"training finished in {time.perf_counter() - t_start:.1f}s")
+    loop.flush_metrics()
+    loop.save(opt_state)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,9 +28,16 @@ step) (:func:`step_generator`), so a resumed run draws what an
 uninterrupted one draws: JAX's ``fold_in(key, step)`` contract.  The bits
 differ from JAX's threefry, so comparisons with JAX run at dropout 0.
 
+Batches come from the host (numpy, ``data.LadDataset``) or from a split
+resident on the device (``data.ResidentLadDataset``): its
+``{'resident', 'idx'}`` markers are gathered on the device, and
+``TrainLoop(steps_per_dispatch=K)`` hands K consecutive ones to one
+``Trainer.train_k_steps_resident`` call, which gives the numbers of K
+single steps.  The K steps run in order from the host; a CUDA graph of
+them is ROADMAP item 11.
+
 Not ported (they raise, naming their ROADMAP item): bf16 compute (item 6),
-the device-resident dataset's fused and K-step paths (item 5, the data
-side), multi-host preemption votes (item 7).
+multi-host preemption votes (item 7).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import csv
 import dataclasses
 import os
 import time
+import warnings
 from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
@@ -145,12 +153,20 @@ class Trainer:
         return self.optimizer.init(self.params)
 
     def _prep(self, batch):
+        if batch.get("resident") is not None:  # a ResidentLadDataset marker
+            x, _lens, y = batch["resident"].gather(batch["idx"])
+            return x[:, None, :, :], y
         inputs = batch["inputs"]
-        if not isinstance(inputs, torch.Tensor):
-            inputs = torch.from_numpy(np.ascontiguousarray(inputs, dtype=np.float32))
-        if self.transfer_dtype == "bfloat16":
-            inputs = inputs.to(torch.bfloat16)
-        x = inputs.to(self.device).float()[:, None, :, :]
+        if isinstance(inputs, torch.Tensor) and inputs.device.type == self.device.type:
+            # Already on the device (a resident dataset's gathered batch):
+            # nothing crosses the link, so no transfer rounding.
+            x = inputs.float()[:, None, :, :]
+        else:
+            if not isinstance(inputs, torch.Tensor):
+                inputs = torch.from_numpy(np.ascontiguousarray(inputs, dtype=np.float32))
+            if self.transfer_dtype == "bfloat16":
+                inputs = inputs.to(torch.bfloat16)
+            x = inputs.to(self.device).float()[:, None, :, :]
         labels = batch["is_laugh"]
         if not isinstance(labels, torch.Tensor):
             labels = torch.from_numpy(np.asarray(labels, dtype=np.float32))
@@ -264,11 +280,44 @@ class Trainer:
             for k, b in self.model.named_buffers():
                 b.copy_(buffers[k])
 
-    def train_batch_resident(self, *args, **kwargs):
-        raise _not_ported("the device-resident dataset's fused train step", 5)
+    def generator(self, seed: int, step: int) -> Optional[torch.Generator]:
+        """The dropout generator of global step ``step`` (:func:`step_generator`);
+        None for a model without dropout."""
+        if getattr(self.model, "dropout_rate", 0.0) > 0.0:
+            return step_generator(seed, step, self.device)
+        return None
 
-    def train_k_steps_resident(self, *args, **kwargs):
-        raise _not_ported("K train steps per dispatch from a device-resident dataset", 5)
+    def train_batch_resident(self, opt_state: AdamState, resident, idx, seed: int, step: int):
+        """One step on rows ``idx`` of a ``data.ResidentLadDataset``: the
+        batch is gathered on the device, then the step is
+        :meth:`train_batch`'s, its dropout drawn from ``step_generator(seed,
+        step)`` as the epoch loop draws a streamed step's, so streamed and
+        resident epochs take the same steps.  Returns (opt_state, metrics)."""
+        x, _lens, y = resident.gather(idx)
+        return self.train_batch(opt_state, {"inputs": x, "is_laugh": y}, self.generator(seed, step))
+
+    def train_k_steps_resident(self, opt_state: AdamState, resident, idx_mat, seed: int,
+                               step0: int):
+        """K optimizer steps from one call: row k of the [K, B] index
+        matrix is global step ``step0 + k``.  The matrix crosses the link
+        once and the steps run in order, each :meth:`train_batch_resident`,
+        so the numbers are those of K single steps.  Returns (opt_state,
+        metrics), each metric stacked [K] in step order.  Requires
+        ``grad_accum == 1``: an accumulation group is host state a K-step
+        call cannot carry."""
+        if self.grad_accum != 1:
+            raise ValueError(
+                f"train_k_steps_resident requires grad_accum == 1 (got {self.grad_accum})")
+        idx_mat = torch.as_tensor(np.asarray(idx_mat), dtype=torch.int64)
+        if idx_mat.ndim != 2:
+            raise ValueError(f"idx_mat must be [K, B]; got {tuple(idx_mat.shape)}")
+        idx_mat = idx_mat.to(self.device)
+        steps = []
+        for k in range(idx_mat.shape[0]):
+            opt_state, m = self.train_batch_resident(opt_state, resident, idx_mat[k], seed,
+                                                     step0 + k)
+            steps.append(m)
+        return opt_state, {k: torch.stack([m[k] for m in steps]) for k in steps[0]}
 
     # ------------------------------------------------------------------ #
 
@@ -349,7 +398,8 @@ class TrainLoop:
     #: multi-host preemption votes: ROADMAP item 7.
     sync_preempt: Optional[Callable[[bool], bool]] = None
     preempt_vote_every: int = 10
-    #: K steps per dispatch from a device-resident dataset: ROADMAP item 5.
+    #: up to K consecutive batches of one resident dataset (same size) go to
+    #: one Trainer.train_k_steps_resident call; 1 = a call a step.
     steps_per_dispatch: int = 1
 
     global_step: int = 0
@@ -369,8 +419,6 @@ class TrainLoop:
     def __post_init__(self):
         if self.sync_preempt is not None or self.preempt_vote_every != 10:
             raise _not_ported("multi-host preemption votes (sync_preempt, preempt_vote_every)", 7)
-        if self.steps_per_dispatch != 1:
-            raise _not_ported("steps_per_dispatch > 1 (a device-resident dataset)", 5)
 
     def install_preemption_handler(self, signals=None) -> None:
         """Checkpoint on SIGTERM / SIGINT: the handler sets a flag; run_epoch
@@ -436,13 +484,28 @@ class TrainLoop:
             epoch_step=self.epoch_step - step_offset,
         )
 
+    def _dispatch_group_limit(self) -> int:
+        """The largest K-step group that starts at the current global_step
+        without passing a log point: a log point fires at ``global_step %
+        log_frequency == 0`` after the increment, so a group of exactly the
+        remaining distance ends on it."""
+        k = self.steps_per_dispatch
+        if k <= 1:
+            return 1
+        if self.log_frequency:
+            k = min(k, self.log_frequency - (self.global_step % self.log_frequency))
+        return max(k, 1)
+
     def run_epoch(self, opt_state: AdamState, train_batches: Iterable,
                   val_batches_fn: Optional[Callable[[int], List]] = None,
                   seed: Optional[int] = None, verbose: bool = True):
         """One pass over ``train_batches``; ``val_batches_fn(n)`` gives n
         validation batches for the online eval every ``log_frequency``
         steps; dropout draws from :func:`step_generator` (``seed``, default
-        the epoch number).  Returns (opt_state, mean train loss)."""
+        the epoch number).  With ``steps_per_dispatch`` = K > 1, up to K
+        consecutive resident markers of one dataset and one size go to one
+        ``train_k_steps_resident`` call (a group ends at a log point).
+        Returns (opt_state, mean train loss)."""
         trainer = self.trainer
         if seed is None:
             seed = self.epoch
@@ -462,9 +525,30 @@ class TrainLoop:
         # The loss accounting at the last apply boundary, for the rollback.
         loss_at_boundary: Optional[torch.Tensor] = None
         nb_at_boundary = 0
-        dropout = getattr(trainer.model, "dropout_rate", 0.0) > 0.0
+        if self.steps_per_dispatch > 1:
+            # Refused loudly rather than run one step a call: a user who
+            # set K must not believe the steps were grouped.
+            if getattr(trainer, "grad_accum", 1) != 1:
+                raise ValueError(
+                    "steps_per_dispatch > 1 requires grad_accum == 1 (accumulation "
+                    "groups are host state a K-step call cannot carry)")
+            if not hasattr(trainer, "train_k_steps_resident"):
+                raise ValueError(
+                    f"trainer {type(trainer).__name__} has no train_k_steps_resident; "
+                    "steps_per_dispatch > 1 needs it")
         t0 = time.perf_counter()
-        for batch in train_batches:
+        it = iter(train_batches)
+        no_pending = object()  # None is a real (placeholder) batch
+        pending_next = no_pending
+        max_group_n = 1  # the largest K-step group formed this epoch
+        while True:
+            if pending_next is not no_pending:
+                batch, pending_next = pending_next, no_pending
+            else:
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
             if skip > 0:
                 skip -= 1  # a trained batch (or a None placeholder) passes
                 continue
@@ -472,12 +556,46 @@ class TrainLoop:
                 raise RuntimeError(
                     "skip placeholder (None) beyond epoch_step: the batch source's "
                     "skip_assembly disagrees with the loop's resume position")
-            gen = step_generator(seed, self.global_step, trainer.device) if dropout else None
-            opt_state, metrics = trainer.train_batch(opt_state, batch, gen)
-            loss_sum = metrics["loss"] if loss_sum is None else loss_sum + metrics["loss"]
-            num_batches += 1
-            self.global_step += 1
-            self.epoch_step += 1
+            group_n = 1
+            if isinstance(batch, dict) and batch.get("resident") is not None:
+                # Consecutive markers of the same resident dataset and size,
+                # up to the limit (which ends a group on a log point, so the
+                # per-step logic below holds at every group's end).
+                group = [batch]
+                limit = self._dispatch_group_limit()
+                while len(group) < limit:
+                    try:
+                        nxt = next(it)
+                    except StopIteration:
+                        break
+                    if (isinstance(nxt, dict) and nxt.get("resident") is batch["resident"]
+                            and len(nxt["idx"]) == len(batch["idx"])):
+                        group.append(nxt)
+                    else:
+                        pending_next = nxt  # the epoch's partial last batch, etc.
+                        break
+                if len(group) > 1:
+                    idx_mat = np.stack([np.asarray(g["idx"]) for g in group])
+                    opt_state, k_metrics = trainer.train_k_steps_resident(
+                        opt_state, batch["resident"], idx_mat, seed, self.global_step)
+                    group_n = len(group)
+                    # The epoch mean needs the group's loss sum; a log point
+                    # (at a group's end) reports the last step's metrics.
+                    loss_inc = k_metrics["loss"].sum()
+                    metrics = {k: v[-1] for k, v in k_metrics.items()}
+                else:
+                    opt_state, metrics = trainer.train_batch_resident(
+                        opt_state, batch["resident"], batch["idx"], seed, self.global_step)
+                    loss_inc = metrics["loss"]
+            else:
+                opt_state, metrics = trainer.train_batch(
+                    opt_state, batch, trainer.generator(seed, self.global_step))
+                loss_inc = metrics["loss"]
+            loss_sum = loss_inc if loss_sum is None else loss_sum + loss_inc
+            max_group_n = max(max_group_n, group_n)
+            num_batches += group_n
+            self.global_step += group_n
+            self.epoch_step += group_n
             pending = trainer.pending_micro_steps
             if pending == 0:
                 loss_at_boundary, nb_at_boundary = loss_sum, num_batches
@@ -530,6 +648,17 @@ class TrainLoop:
         opt_state = trainer.flush_pending_group(opt_state)
         self.epoch += 1
         self.epoch_step = 0
+        if (self.steps_per_dispatch > 1 and num_batches > 1 and max_group_n == 1
+                and not getattr(self, "_warned_degenerate_groups", False)):
+            # Groups form only from consecutive markers of ONE resident
+            # object; streamed batches, or a fresh marker object per batch,
+            # run a call a step.  Said once per TrainLoop.
+            self._warned_degenerate_groups = True
+            warnings.warn(
+                f"steps_per_dispatch={self.steps_per_dispatch} but no K-step group formed "
+                "this epoch: grouping requires consecutive batches that share ONE resident "
+                "object (ResidentLadDataset.index_batches); streamed host batches run one "
+                "step a call", RuntimeWarning, stacklevel=2)
         mean_loss = float(loss_sum) / num_batches if num_batches else 0.0
         if verbose:
             dt = time.perf_counter() - t0

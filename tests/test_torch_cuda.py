@@ -249,3 +249,49 @@ def test_native_decoder_on_the_cards_machine(card, tmp_path):
     np.testing.assert_array_equal(got[:, 0], pcm)
     np.testing.assert_array_equal(
         got, shorten.decode_file(path, meta.data_offset, max_frames=meta.num_samples))
+
+
+@pytest.mark.cuda
+def test_cached_track_from_the_kernel_matches_plain(card, tmp_path):
+    """The feature cache featurizes on the card one kernel launch a bucket
+    (two full 30,000-frame buckets and a partial one), within the feature
+    tolerance of the plain featurizer on the same PCM."""
+    from laughter_detection_icsi_tpu_torch.data import feature_cache
+
+    wave = _wave(160 * 70_000 + 77, seed=8)
+    cache = feature_cache.FeatureCache(str(tmp_path / "feats"))
+    before = fbank_cuda.launches
+    got = cache.add_track("Bmr021", "chan0", wave)  # device None = cuda
+    assert fbank_cuda.launches - before == 3
+    want = feature_cache.compute_track_features(wave, FEAT, device="cpu")
+    assert got.shape == want.shape == (70_000, FEAT.num_filters)
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_array_equal(cache.track("Bmr021", "chan0"), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transfer_dtype", [None, "bfloat16"])
+def test_resident_gather_on_the_card(card, tmp_path, transfer_dtype):
+    """The resident split lives on the card; a gather there equals the host
+    assembly of the same rows (bfloat16: its rounding on the host)."""
+    from laughter_detection_icsi_tpu_torch.data import dataset, feature_cache
+
+    cache = feature_cache.FeatureCache(str(tmp_path / "feats"))
+    cache.add_track("Bmr021", "chan0", _wave(16000 * 20, seed=9), device="cpu")
+    r = np.random.default_rng(3)
+    rows = [dict(meeting_id="Bmr021", chan_id="chan0", sub_start=round(float(s), 2),
+                 sub_duration=0.5 if i % 5 == 0 else 1.0, label=i % 2)
+            for i, s in enumerate(r.uniform(0, 19.5, 300))]
+    ds = dataset.LadDataset(rows, cache)
+    res = dataset.ResidentLadDataset(ds, transfer_dtype)  # device None = cuda
+    assert res.feats.is_cuda
+    idx = np.array([5, 299, 0, 5, 17])
+    x, lens, labels = res.gather(idx)
+    assert x.is_cuda and x.dtype == torch.float32
+    host = ds._assemble(idx)
+    want = torch.from_numpy(host["inputs"])
+    if transfer_dtype:
+        want = want.bfloat16().float()
+    assert torch.equal(x.cpu(), want)
+    assert torch.equal(lens.cpu(), torch.from_numpy(host["input_lens"]))
+    assert torch.equal(labels.cpu(), torch.from_numpy(host["is_laugh"]))

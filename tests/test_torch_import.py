@@ -1,6 +1,6 @@
 """Import contract of the PyTorch port: it (and chip_smoke.py) imports
-neither JAX nor the JAX package, nor pandas or lxml (the card's machine has
-neither), checked in a fresh interpreter (this test process has JAX loaded
+neither JAX nor the JAX package, nor pandas, lxml or ml_dtypes (the card's
+machine has none of them), checked in a fresh interpreter (this test process has JAX loaded
 by conftest) and by reading the sources."""
 
 import re
@@ -18,13 +18,14 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_probe")  # defines, runs nothing
-from laughter_detection_icsi_tpu_torch.cli import analyse, segment_laughter, serve, sweep
-for cli in (segment_laughter, serve, sweep, analyse):
+from laughter_detection_icsi_tpu_torch.cli import (
+    analyse, compute_features, create_data_df, segment_laughter, serve, sweep, train)
+for cli in (segment_laughter, serve, sweep, analyse, create_data_df, compute_features, train):
     try:
         cli.main(["--help"])
     except SystemExit as e:
         assert e.code == 0, e.code
-FORBIDDEN = ("jax", "laughter_detection_icsi_tpu", "pandas", "lxml")
+FORBIDDEN = ("jax", "laughter_detection_icsi_tpu", "pandas", "lxml", "ml_dtypes")
 bad = sorted(m for m in sys.modules
              if m in FORBIDDEN or m.startswith(tuple(f + "." for f in FORBIDDEN)))
 print("MODULES", len(names))
@@ -41,19 +42,24 @@ def test_port_never_imports_jax():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     n = int(re.search(r"MODULES (\d+)", out.stdout).group(1))
-    assert n >= 34, out.stdout  # every module of the slices was imported
+    assert n >= 40, out.stdout  # every module of the slices was imported
     names = re.search(r"NAMES (.*)", out.stdout).group(1).split()
-    for mod in ("runtime.native", "train.checkpoint", "train.loop", "train.optim"):
+    for mod in ("runtime.native", "train.checkpoint", "train.loop", "train.optim",
+                "data.dataset", "data.feature_cache", "data.sampler", "cli.create_data_df",
+                "cli.compute_features", "cli.train"):
         assert f"laughter_detection_icsi_tpu_torch.{mod}" in names, mod
-    # Every CLI's --help ran: segment_laughter's, serve's, sweep's, analyse's.
+    # Every CLI's --help ran: segment_laughter's, serve's, sweep's, analyse's,
+    # create_data_df's, compute_features's, train's.
     assert "--input_audio_file" in out.stdout and "--save_probs" in out.stdout
     assert "--transfer_codec" in out.stdout and "--min_length_sweep" in out.stdout
+    assert "--num_non_laugh_samples" in out.stdout and "--splits" in out.stdout
+    assert "--device_cache" in out.stdout and "--steps_per_dispatch" in out.stdout
     assert "--device" in out.stdout
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:import|from)\s+(?:jax|laughter_detection_icsi_tpu|pandas|lxml)\b"
-    r"|import_module\(\s*['\"](?:jax|laughter_detection_icsi_tpu|pandas|lxml)\b",
+    r"^\s*(?:import|from)\s+(?:jax|laughter_detection_icsi_tpu|pandas|lxml|ml_dtypes)\b"
+    r"|import_module\(\s*['\"](?:jax|laughter_detection_icsi_tpu|pandas|lxml|ml_dtypes)\b",
     re.MULTILINE,
 )
 
@@ -61,8 +67,11 @@ _IMPORT = re.compile(
 def test_sources_name_no_jax_import():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 27
-    for sub in ("runtime", "train"):
+    for sub in ("runtime", "train", "data", "cli"):
         assert any(f.parent == PORT / sub for f in files), sub
+    for name in ("data/dataset.py", "data/feature_cache.py", "data/sampler.py",
+                 "cli/create_data_df.py", "cli/compute_features.py", "cli/train.py"):
+        assert PORT / name in files, name
     offenders = [str(f.relative_to(REPO)) for f in files if _IMPORT.search(f.read_text())]
     assert offenders == []
 
@@ -73,6 +82,7 @@ def test_pattern_catches_what_it_should():
     assert _IMPORT.search("importlib.import_module('jax')")
     assert _IMPORT.search("import pandas as pd")
     assert _IMPORT.search("    from lxml import etree")
+    assert _IMPORT.search("import ml_dtypes")
     assert not _IMPORT.search("import pandasql")
     assert not _IMPORT.search("from laughter_detection_icsi_tpu_torch.ops import fbank")
     assert not _IMPORT.search("import jaxtyping")

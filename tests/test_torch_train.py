@@ -302,12 +302,12 @@ def test_unported_options_raise(jax_side, tmp_path):
     with pytest.raises(ValueError, match="unknown transfer_dtype"):
         Trainer(m, device="cpu", transfer_dtype="bf16")
     t = Trainer(m, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t.train_batch_resident(None, None, None)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t.train_k_steps_resident(None, None, None)
-    for kw, item in ((dict(steps_per_dispatch=2), "item 5"),
-                     (dict(sync_preempt=lambda f: f), "item 7"),
+    # The resident paths are ported (tests/test_torch_train_resident.py);
+    # K steps a call still need grad_accum == 1, as in JAX.
+    with pytest.raises(ValueError, match="grad_accum == 1"):
+        Trainer(m, device="cpu", grad_accum=2).train_k_steps_resident(None, None, [[0]], 0, 0)
+    assert TrainLoop(trainer=t, checkpoint_dir=str(tmp_path), steps_per_dispatch=2)
+    for kw, item in ((dict(sync_preempt=lambda f: f), "item 7"),
                      (dict(preempt_vote_every=5), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             TrainLoop(trainer=t, checkpoint_dir=str(tmp_path), **kw)
