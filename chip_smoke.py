@@ -115,9 +115,47 @@ Phases (any failure exits non-zero and prints no result):
    breakdown (torch.profiler), the host time to assemble one streamed
    batch, the resident split's bytes, build and upload time, and peak
    memory;
-11. the card, one JSON line of the kernels (the fbank kernel at the main
+11. bf16 serving — the card's default precision: phase 4's audio and
+   model through ``cli/segment_laughter`` with no ``--precision`` (one
+   launch per bucket, the TextGrid equal to the smoothing), the bf16
+   pipeline within 0.05 of phase 4's float32 probabilities, within 2e-2 of
+   the port's bf16 on the CPU (5 s clip), shared stem within 2e-2 of naive
+   windows; fused_conv, serve replay (bit-equal to the bf16 offline
+   probabilities) and 4 x 150 s multichannel (rows within 0.05 of phase 7's,
+   ``ShardedStreamingSession`` bit-equal to the batch) in bf16; x realtime
+   and audio-s per wall-s beside the float32 figures, peak memory, the
+   device breakdown by kind; one bf16 sweep of phase 8's corpus, its
+   TextGrids equal to the smoothing of the in-process bf16
+   ``ShardedPipeline``, its launches those of phase 8's float32 sweep;
+12. bf16 training — ``Trainer(compute_dtype='bfloat16')`` at full width:
+   one step at dropout 0 against the port's bf16 step on the CPU (loss
+   rtol 2e-2; parameters rtol 5e-2, atol 5e-3: JAX's mixed-precision
+   tolerances), masters, Adam moments and BN buffers float32; the card's
+   bf16 gradients against the CPU's on three batches (within 2e-2 of
+   max(1, max|g|), each weight's at cosine >= 0.85 and closer than the
+   CPU's float32 gradients), the card's x 0.9 read beside them; 20 steps at
+   dropout 0.5 lower the loss; steps per second at B = 32 and 1024 beside
+   phase 9's float32, peak memory, device time by region; ``cli/train
+   --precision bfloat16 --device_cache on`` for one epoch on phase 10's
+   tables, its checkpoint float32 and through ``cli/segment_laughter``;
+13. export — ``cli/export_model --what windows`` in float32 and bf16
+   (symbolic batch), each loaded and called at B = 1, 37 and 6,144 (f32
+   within 1e-6 of the live model, bf16 within 2e-2 of the live bf16
+   copy); ``--what e2e --wave_dtype int16`` at chunk and bucket 6,144,
+   loaded in a fresh process that imports only ``export`` and
+   ``host_prep`` and run per bucket over phase 4's audio through
+   ``bucket_inputs``: the fbank kernel launched once a bucket inside the
+   artifact, the probabilities within 1e-6 of (printed: equal to)
+   ``LaughterPipeline.probs_for_waveform``, its time a bucket beside the
+   live pipeline's; ``cli/convert_checkpoint`` .ckpt.npz -> .pth.tar ->
+   .ckpt.npz with equal tensors;
+14. the card, one JSON line of the kernels (the fbank kernel at the main
    path's bucket; ``launches`` counted on phase 8's sweep, the launches of
-   every path beside them), then the result line.
+   every path, the bf16 paths' and the e2e artifact's included, beside
+   them), then the result line.
+
+Phases 4-10 compare float32 numbers and pass ``precision='float32'`` (or
+``--precision float32``) explicitly: the card's default is bf16.
 
 The script imports neither JAX nor the JAX package.
 """
@@ -145,6 +183,14 @@ JAX_TONE_ERR = 1.8456e-3
 SECONDS = 150  # main-path audio: three 6144-frame buckets, the last partial
 DEVICE = "cuda"  # phase 9's device (a rehearsal on the CPU sets "cpu")
 TRAIN_SIZES = (32, 1024)  # phase 9's timed batches: resnet_base's preset, and a large one
+#: Phase 12 (a): the card's bf16 gradients against the CPU's, at full width,
+#: B = 32, as a share of max(1, max|g|) and as the least cosine of a weight's
+#: gradient (H100 80GB HBM3, 700 W: 3.7e-3 to 7.8e-3 and 0.913 to 0.958 on
+#: its three batches; zero gradients read max|g| >= 0.11 and cosine 0).  The
+#: CPU's float32 gradients read 9.0e-3 to 1.25e-2 and 0.733 to 0.856, so
+#: each batch's least cosine must also beat theirs: the card runs the bf16
+#: chain.  PERF.md section 6 records the readings.
+BF16_GRAD_TOL, BF16_GRAD_COS = 2e-2, 0.85
 
 # Published peaks (NVIDIA data sheets, dense, at the full power limit):
 # float32 outside the tensor cores, TF32 on the tensor cores (half the
@@ -491,12 +537,15 @@ def precision_setting() -> str:
 
 
 def midway_threshold(probs: np.ndarray) -> float:
-    """A threshold midway between neighbouring probabilities near the
-    median, so that no rerun's rounding can flip a frame across it."""
+    """A threshold midway between neighbouring distinct probabilities at or
+    just above the median, so that no rerun's rounding can flip a frame
+    across it (bf16 probabilities repeat: they lie on its grid)."""
     srt = np.sort(probs.astype(np.float64))
-    i = len(srt) // 2
-    j = i + int(np.argmax(np.diff(srt[i : i + 50])))
-    thr = round(float(srt[j] + srt[j + 1]) / 2, 6)
+    distinct = np.unique(srt)
+    near = distinct[np.searchsorted(distinct, srt[len(srt) // 2]):][:50]
+    near = near[: max(2, int(np.sum(near <= near[0] + 0.01)))]  # stay near the median
+    j = int(np.argmax(np.diff(near)))
+    thr = round(float(near[j] + near[j + 1]) / 2, 6)
     check(np.min(np.abs(srt - thr)) > 1e-6, f"threshold {thr} sits on a probability")
     return thr
 
@@ -532,7 +581,7 @@ def phase_main_path(card, work: Path):
     wav = work / "meeting.wav"
     pcm = speechlike(16000 * SECONDS, seed=2)
     audio.write_wav(str(wav), pcm, 16000)
-    settings = inference.settings_from_flags(device="cuda")
+    settings = inference.settings_from_flags(device="cuda", precision="float32")
     n_frames = host_prep.num_frames(len(pcm))
     n_buckets = -(-n_frames // settings.bucket_frames)
     print(f"resnet_base ResNetBigger {preset.filter_sizes}, head {preset.linear_layer_size}; "
@@ -553,7 +602,7 @@ def phase_main_path(card, work: Path):
         "--model_path", ckpt, "--input_audio_file", str(wav), "--output_dir", str(out),
         "--thresholds", f"{thr},0.9", "--min_lengths", "0.2",
         "--save_to_textgrid", "True", "--save_to_audio_files", "False",
-        "--device", "cuda",
+        "--device", "cuda", "--precision", "float32",
     ])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
@@ -585,8 +634,9 @@ def phase_main_path(card, work: Path):
     # Shared stem against the naive window batch, on the card.
     clip = pcm[: 16000 * 20]
     naive = inference.LaughterPipeline(
-        model, settings=inference.settings_from_flags(device="cuda", shared_stem=False),
-        device="cuda",
+        model, device="cuda",
+        settings=inference.settings_from_flags(device="cuda", precision="float32",
+                                               shared_stem=False),
     )
     d_stem = np.abs(pipe.probs_for_waveform(clip) - naive.probs_for_waveform(clip)).max()
     check(d_stem <= 1e-5, f"shared stem vs naive differ by {d_stem:.3e} > 1e-5")
@@ -605,7 +655,8 @@ def phase_main_path(card, work: Path):
     device_breakdown("segment_file", lambda: pipe.segment_file(str(wav), [thr], [0.2]), best,
                      work / "segment_file.trace.json")
     return dict(launches=launches, model=model, build_model=build_model, ckpt=ckpt, wav=wav,
-                pcm=pcm, probs=probs, thr=thr, pipe=pipe, n_buckets=n_buckets)
+                pcm=pcm, probs=probs, thr=thr, pipe=pipe, n_buckets=n_buckets,
+                x_rt=duration / best, peak=peak)
 
 
 def phase_fused_conv(card, work: Path, ctx: dict) -> int:
@@ -621,7 +672,7 @@ def phase_fused_conv(card, work: Path, ctx: dict) -> int:
     from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, smoothing
 
     model, wav, pcm = ctx["model"], ctx["wav"], ctx["pcm"]
-    settings = inference.settings_from_flags(device="cuda", mode="fused_conv")
+    settings = inference.settings_from_flags(device="cuda", precision="float32", mode="fused_conv")
     pipe = inference.LaughterPipeline(model, settings=settings, device="cuda")
     probs, duration = pipe.probs_for_file(str(wav))  # also warms cuDNN up
     check_probs(probs, ctx["probs"].shape, "fused_conv")
@@ -636,6 +687,7 @@ def phase_fused_conv(card, work: Path, ctx: dict) -> int:
         "--model_path", ctx["ckpt"], "--input_audio_file", str(wav), "--output_dir", str(out),
         "--thresholds", f"{thr}", "--min_lengths", "0.2", "--save_to_textgrid", "True",
         "--save_to_audio_files", "False", "--mode", "fused_conv", "--device", "cuda",
+        "--precision", "float32",
     ])
     torch.cuda.synchronize()
     launches = fbank_cuda.launches
@@ -687,6 +739,7 @@ def phase_fused_conv(card, work: Path, ctx: dict) -> int:
     print(f"  of which the host's file read + reflection pad: {1e3 * min(host):.2f} ms "
           f"(host clock, best of 3)")
     device_breakdown("segment_file (fused_conv)", run, best, work / "fused_conv.trace.json")
+    ctx.update(fused_probs=probs, fused_x_rt=duration / best, fused_peak=peak)
 
     # A one-hour channel (the audio 24 times over): the blocks go through the
     # stack fully_conv.MAX_BLOCKS at a time; held against one batch of all.
@@ -744,7 +797,7 @@ def phase_streaming(card, work: Path, ctx: dict) -> int:
         rc = serve.main([
             "--model_path", ctx["ckpt"], "--input", str(ctx["wav"]), "--threshold", str(thr),
             "--min_length", "0.2", "--chunk_ms", "250", "--save_probs", str(saved),
-            "--device", "cuda",
+            "--device", "cuda", "--precision", "float32",
         ])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -798,8 +851,8 @@ def phase_multichannel(card, work: Path, ctx: dict) -> int:
 
     n = 16000 * SECONDS
     chans = [speechlike(n - (777 if c == 3 else 0), seed=10 + c) for c in range(4)]
-    spipe = ShardedPipeline(ctx["model"], settings=inference.settings_from_flags(device="cuda"),
-                            device="cuda")
+    spipe = ShardedPipeline(ctx["model"], device="cuda",
+                            settings=inference.settings_from_flags(device="cuda", precision="float32"))
     spipe.probs_for_waveforms(chans)  # warms cuDNN up for the batch
     fbank_cuda.launches = 0
     rows = spipe.probs_for_waveforms(chans)
@@ -841,6 +894,7 @@ def phase_multichannel(card, work: Path, ctx: dict) -> int:
           f"wall-s (best of 3); peak device memory {peak / 2**30:.3f} GiB")
     device_breakdown("probs_for_waveforms (4 channels)", run, min(took),
                      work / "multichannel.trace.json")
+    ctx.update(mc_chans=chans, mc_rows=rows, mc_rate=audio_s / min(took), mc_peak=peak)
     # Each channel is classified alone, so the peak does not grow with the
     # channel count: 9 channels of 20 s (an ICSI meeting can have 9 or more).
     nine = [speechlike(16000 * 20, seed=30 + c) for c in range(9)]
@@ -861,7 +915,7 @@ def phase_multichannel(card, work: Path, ctx: dict) -> int:
     proc = subprocess.run(
         [sys.executable, "-m", "laughter_detection_icsi_tpu_torch.cli.serve",
          "--model_path", ctx["ckpt"], "--channels", "4", "--threshold", str(thr),
-         "--min_length", "0.2", "--device", "cuda"],
+         "--min_length", "0.2", "--device", "cuda", "--precision", "float32"],
         input=np.stack(seg, axis=1).astype("<i2").tobytes(), cwd=REPO,
         capture_output=True, timeout=600,
     )
@@ -1040,7 +1094,7 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
     thresholds = parse_float_list(sweep.DEFAULT_THRESHOLDS)
     min_lengths = parse_float_list(sweep.DEFAULT_MIN_LENGTHS)
     grid = len(thresholds) * len(min_lengths)
-    settings = inference.settings_from_flags(device="cuda")
+    settings = inference.settings_from_flags(device="cuda", precision="float32")
     n_batches = {m: -(-max(host_prep.num_frames(i.num_samples) for i in ms) // settings.bucket_frames)
                  for m, ms in metas.items()}
     n_warm = len({len(ps) for ps in paths.values()})  # one warm-up per channel count
@@ -1062,7 +1116,8 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
         with contextlib.redirect_stdout(text):
             rc = sweep.main(["--audio_dir", str(adir), "--transcript_dir", str(tdir),
                              "--output_dir", str(out), "--split", "all", "--analyse",
-                             "--model_path", ctx["ckpt"], "--device", "cuda", *flags])
+                             "--model_path", ctx["ckpt"], "--device", "cuda",
+                             "--precision", "float32", *flags])
         torch.cuda.synchronize()
         launches = fbank_cuda.launches
         check(rc == 0, f"sweep {name} returned {rc}")
@@ -1094,6 +1149,7 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
         want = n_warm + sum(n_batches.values())
         check(raw["launches"] == want, f"sweep: {raw['launches']} fbank launches for "
               f"{sum(n_batches.values())} bucket batches {n_batches} + {n_warm} warm-ups")
+        ctx["sweep_launches"] = want  # the bf16 sweep runs the same buckets
         spipe = ShardedPipeline(ctx["model"], settings=settings, device="cuda")
         for m, ps in paths.items():
             probs, durations = spipe.probs_for_meeting(ps)
@@ -1211,7 +1267,7 @@ def packed_bucket(card, spipe, ctx, paths) -> float:
     from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline
 
     ppipe = ShardedPipeline(ctx["model"], device="cuda", settings=inference.settings_from_flags(
-        device="cuda", transfer_codec="packed"))
+        device="cuda", precision="float32", transfer_codec="packed"))
     padded, ts = zip(*(host_prep.host_pad_waveform(audio.read_int16(p)[0]) for p in paths))
     meeting, valid, _ = next(spipe.bucket_batches(padded, ts, int16_in=True))
     talk = np.stack([closetalk(spipe.wave_len, seed=200 + c) for c in range(len(paths))])
@@ -1428,8 +1484,9 @@ def phase_train(card, work: Path, ctx: dict) -> int:
     ckpt = str(work / "train" / "last.ckpt.npz")
     trained = model(0.0)
     trained.load_state_dict(t2.model.state_dict())
-    pipe = inference.LaughterPipeline(trained, settings=inference.settings_from_flags(device=DEVICE),
-                                      device=DEVICE)
+    pipe = inference.LaughterPipeline(
+        trained, device=DEVICE,
+        settings=inference.settings_from_flags(device=DEVICE, precision="float32"))
     probs, _ = pipe.probs_for_file(str(ctx["wav"]))
     check_probs(probs, ctx["probs"].shape, "trained checkpoint")
     thr = midway_threshold(probs)
@@ -1437,7 +1494,7 @@ def phase_train(card, work: Path, ctx: dict) -> int:
     rc = cli.main(["--model_path", ckpt, "--input_audio_file", str(ctx["wav"]),
                    "--output_dir", str(out), "--thresholds", f"{thr}", "--min_lengths", "0.2",
                    "--save_to_textgrid", "True", "--save_to_audio_files", "False",
-                   "--device", DEVICE])
+                   "--device", DEVICE, "--precision", "float32"])
     check(rc == 0, f"segment CLI on the trained checkpoint returned {rc}")
     got = textgrid.read_laughter_intervals(str(out / f"t_{thr}" / "l_0.2" / "meeting.TextGrid"))
     want_i = smoothing.get_laughter_instances(probs, [thr], [0.2])[(thr, 0.2)]
@@ -1474,6 +1531,7 @@ def phase_train(card, work: Path, ctx: dict) -> int:
               f"{best[1]:.3f} ms); {b * 1e3 / best[0]:.0f} windows per second; peak device memory "
               f"{peak / 2**30:.3f} GiB")
         train_breakdown(f"B={b}", lambda: t.train_batch(opt, bb, gens[0]), work / f"train_{b}.trace.json")
+        ctx.setdefault("train_rate", {})[b] = 1e3 / best[0]
     return launches
 
 
@@ -1516,6 +1574,7 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
     tdir, adir, paths = ctx["corpus"]
     root = work / "train_data"
     dfs, feats = root / "data_dfs", root / "feats"
+    ctx["train_data"] = (root, dfs, feats, adir)  # the bf16 phase trains on them
     preset = MODEL_MAP["resnet_base"]
 
     def cli(main, argv):
@@ -1676,8 +1735,9 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
     trained = zoo.build(preset.model, dropout_rate=0.0, linear_layer_size=preset.linear_layer_size,
                         filter_sizes=preset.filter_sizes)
     trained.load_state_dict(ckpt_lib.load_checkpoint(ck)["state_dict"], strict=True)
-    pipe = inference.LaughterPipeline(trained, settings=inference.settings_from_flags(device=DEVICE),
-                                      device=DEVICE)
+    pipe = inference.LaughterPipeline(
+        trained, device=DEVICE,
+        settings=inference.settings_from_flags(device=DEVICE, precision="float32"))
     probs, _ = pipe.probs_for_file(str(ctx["wav"]))
     check_probs(probs, ctx["probs"].shape, "corpus-trained checkpoint")
     thr = midway_threshold(probs)
@@ -1685,7 +1745,7 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
     rc = seg_cli.main(["--model_path", str(root / "resident"), "--input_audio_file", str(ctx["wav"]),
                        "--output_dir", str(seg_out), "--thresholds", f"{thr}", "--min_lengths", "0.2",
                        "--save_to_textgrid", "True", "--save_to_audio_files", "False",
-                       "--device", DEVICE])
+                       "--device", DEVICE, "--precision", "float32"])
     check(rc == 0, f"segment CLI on the corpus-trained checkpoint returned {rc}")
     got = textgrid.read_laughter_intervals(str(seg_out / f"t_{thr}" / "l_0.2" / "meeting.TextGrid"))
     check(got == smoothing.get_laughter_instances(probs, [thr], [0.2])[(thr, 0.2)],
@@ -1761,6 +1821,534 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
     return dict(launches=launches, max_err=float(err.max()))
 
 
+def best_wall(fn, n: int = 3):
+    """(best, all) host-clock seconds of ``n`` calls of ``fn``, each ended by
+    a device synchronize."""
+    import torch
+
+    took = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t0)
+    return min(took), took
+
+
+def peak_of(fn) -> int:
+    """Peak device memory of one call of ``fn``."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def phase_bf16_serving(card, work: Path, ctx: dict) -> dict:
+    """bf16 on every serving path (the default on the card), each held
+    against its float32 result of phases 4-8; returns the kernel launches of
+    each path."""
+    import contextlib
+    import io
+
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep, inference
+    from laughter_detection_icsi_tpu_torch.cli import segment_laughter as cli
+    from laughter_detection_icsi_tpu_torch.cli import serve, sweep
+    from laughter_detection_icsi_tpu_torch.config import parse_float_list
+    from laughter_detection_icsi_tpu_torch.eval import textgrid
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, smoothing
+    from laughter_detection_icsi_tpu_torch.parallel import (
+        ShardedPipeline, ShardedStreamingSession)
+
+    model, wav, pcm, n_buckets = ctx["model"], ctx["wav"], ctx["pcm"], ctx["n_buckets"]
+    settings = inference.settings_from_flags(device="cuda")
+    check(settings.precision == "bfloat16", f"the card's default precision is {settings.precision}")
+    pipe = inference.LaughterPipeline(model, settings=settings, device="cuda")
+    check(all(p.dtype == torch.float32 for p in model.parameters())
+          and pipe.model is not model, "the bf16 pipeline changed the caller's float32 model")
+    with inference.precision_scope("bfloat16"):
+        flags = (f"{precision_setting()}, cuda.matmul.allow_bf16_reduced_precision_reduction="
+                 f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+    print(f"bf16: settings_from_flags(device='cuda') -> {settings.precision}; the classifier on a "
+          f"bf16 copy of the model, the featurizer in fp32; {flags} inside the bucket step")
+    probs, duration = pipe.probs_for_file(str(wav))
+    check_probs(probs, ctx["probs"].shape, "bf16 windows")
+    d_f32 = float(np.abs(probs - ctx["probs"]).max())
+    check(d_f32 <= 0.05, f"bf16 windows {d_f32:.3e} from float32 > 0.05")
+    thr = midway_threshold(probs)
+
+    # The main path through the CLI with no --precision: the card's default.
+    out = work / "out_bf16"
+    fbank_cuda.launches = 0
+    rc = cli.main(["--model_path", ctx["ckpt"], "--input_audio_file", str(wav),
+                   "--output_dir", str(out), "--thresholds", f"{thr}", "--min_lengths", "0.2",
+                   "--save_to_textgrid", "True", "--save_to_audio_files", "False",
+                   "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {"windows_bf16": fbank_cuda.launches}
+    check(rc == 0, f"CLI (bf16 default) returned {rc}")
+    check(launches["windows_bf16"] == n_buckets,
+          f"bf16 CLI: {launches['windows_bf16']} launches for {n_buckets} buckets")
+    want = smoothing.get_laughter_instances(probs, [thr], [0.2])[(thr, 0.2)]
+    check(len(want) > 0, f"bf16: no laughter instances at threshold {thr}")
+    got = textgrid.read_laughter_intervals(str(out / f"t_{thr}" / "l_0.2" / "meeting.TextGrid"))
+    check(got == want, "the bf16 CLI's TextGrid differs from the smoothing")
+    print(f"bf16 CLI run (no --precision): {launches['windows_bf16']} launches ({n_buckets} "
+          f"buckets); TextGrid equals the smoothing ({len(got)} instances); probabilities in "
+          f"[{probs.min():.4f}, {probs.max():.4f}], max |bf16 - float32| = {d_f32:.3e} (limit 0.05)")
+
+    clip = pcm[: 16000 * 5]
+    cpu_model = ctx["build_model"]()
+    cpu_model.load_state_dict(model.state_dict())
+    small = inference.InferenceSettings(chunk=256, bucket_frames=512, precision="bfloat16")
+    d_cpu = float(np.abs(
+        pipe.probs_for_waveform(clip)
+        - inference.LaughterPipeline(cpu_model, settings=small, device="cpu").probs_for_waveform(clip)
+    ).max())
+    check(d_cpu <= 2e-2, f"bf16 card vs bf16 CPU differ by {d_cpu:.3e} > 2e-2")
+    clip = pcm[: 16000 * 20]
+    naive = inference.LaughterPipeline(model, device="cuda", settings=inference.settings_from_flags(
+        device="cuda", shared_stem=False))
+    d_stem = float(np.abs(pipe.probs_for_waveform(clip) - naive.probs_for_waveform(clip)).max())
+    check(d_stem <= 2e-2, f"bf16 shared stem vs naive differ by {d_stem:.3e} > 2e-2")
+    print(f"bf16 card vs bf16 on the CPU, 5 s clip: {d_cpu:.3e} (limit 2e-2); shared stem vs "
+          f"naive windows, 20 s clip: {d_stem:.3e} (limit 2e-2)")
+
+    run = lambda: pipe.segment_file(str(wav), [thr], [0.2])
+    best, took = best_wall(run)
+    peak = peak_of(run)
+    print(f"e2e segment_file on {card}: bf16 {duration / best:.1f}x realtime (best of 3: "
+          f"{', '.join(f'{t:.4f}' for t in took)} s) vs float32 {ctx['x_rt']:.1f}x (phase 4) = "
+          f"{duration / best / ctx['x_rt']:.3f}x; peak device memory bf16 {peak / 2**30:.3f} GiB "
+          f"vs float32 {ctx['peak'] / 2**30:.3f} GiB")
+    device_breakdown("segment_file (bf16)", run, best, work / "bf16_windows.trace.json")
+
+    # fused_conv in bf16.
+    fpipe = inference.LaughterPipeline(model, device="cuda", settings=inference.settings_from_flags(
+        device="cuda", mode="fused_conv"))
+    fbank_cuda.launches = 0
+    fprobs, _ = fpipe.probs_for_file(str(wav))
+    launches["fused_conv_bf16"] = fbank_cuda.launches
+    check(launches["fused_conv_bf16"] == 1, f"bf16 fused_conv: {fbank_cuda.launches} launches")
+    check_probs(fprobs, ctx["probs"].shape, "bf16 fused_conv")
+    d_fc = float(np.abs(fprobs - ctx["fused_probs"]).max())
+    check(d_fc <= 0.05, f"bf16 fused_conv {d_fc:.3e} from float32 > 0.05")
+    run = lambda: fpipe.segment_file(str(wav), [thr], [0.2])
+    best, took = best_wall(run)
+    peak = peak_of(run)
+    print(f"fused_conv bf16: 1 launch; max |bf16 - float32| = {d_fc:.3e} (limit 0.05); "
+          f"{duration / best:.1f}x realtime (best of 3: {', '.join(f'{t:.4f}' for t in took)} s) "
+          f"vs float32 {ctx['fused_x_rt']:.1f}x (phase 5) = {duration / best / ctx['fused_x_rt']:.3f}x; "
+          f"peak {peak / 2**30:.3f} GiB vs {ctx['fused_peak'] / 2**30:.3f} GiB")
+    device_breakdown("segment_file (fused_conv, bf16)", run, best, work / "bf16_fused.trace.json")
+
+    # serve replay with no --precision: streaming bit-equal to the bf16 offline.
+    saved = work / "serve_bf16.npy"
+    stdout = io.StringIO()
+    fbank_cuda.launches = 0
+    with contextlib.redirect_stdout(stdout):
+        rc = serve.main(["--model_path", ctx["ckpt"], "--input", str(wav), "--threshold",
+                         str(thr), "--min_length", "0.2", "--chunk_ms", "250", "--save_probs",
+                         str(saved), "--device", "cuda"])
+    launches["serve_bf16"] = fbank_cuda.launches
+    check(rc == 0 and launches["serve_bf16"] == n_buckets + 1,
+          f"bf16 serve: rc {rc}, {launches['serve_bf16']} launches")
+    streamed = np.load(saved)
+    check(streamed.shape == (1, len(probs)) and np.array_equal(streamed[0], probs),
+          "bf16 streamed probabilities differ from the bf16 offline ones")
+    fps = len(probs) / (len(pcm) / 16000)
+    want = [(round(a, 3), round(b, 3)) for a, b in
+            smoothing.get_laughter_instances(probs, [thr], [0.2], fps=fps)[(thr, 0.2)]]
+    events = [(e["start"], e["end"]) for e in map(json.loads, stdout.getvalue().splitlines())
+              if e["type"] == "event"]
+    check(events == want, "bf16 serve events differ from the offline smoothing")
+    print(f"serve replay, bf16 default: probabilities bit-equal to the bf16 offline ones, "
+          f"{len(events)} events equal the smoothing, {launches['serve_bf16']} launches")
+
+    # Multichannel, 4 x 150 s.
+    chans = ctx["mc_chans"]
+    spipe = ShardedPipeline(model, settings=settings, device="cuda")
+    spipe.probs_for_waveforms(chans)
+    fbank_cuda.launches = 0
+    rows = spipe.probs_for_waveforms(chans)
+    launches["multichannel_bf16"] = fbank_cuda.launches
+    check(launches["multichannel_bf16"] == n_buckets,
+          f"bf16 multichannel: {launches['multichannel_bf16']} launches")
+    d_mc = max(float(np.abs(a - b).max()) for a, b in zip(rows, ctx["mc_rows"]))
+    check(d_mc <= 0.05, f"bf16 multichannel rows {d_mc:.3e} from float32 > 0.05")
+    m = min(len(w) for w in chans) // 4  # a live meeting's first ~37 s
+    equal = [w[:m] for w in chans]
+    sess = ShardedStreamingSession(spipe, n_channels=4)
+    outs = [sess.feed([w[lo : lo + 4000] for w in equal]) for lo in range(0, m, 4000)]
+    full = np.concatenate(outs + [sess.finish()], axis=1)
+    check(all(np.array_equal(a, b) for a, b in zip(full, spipe.probs_for_waveforms(equal))),
+          "bf16 ShardedStreamingSession differs from the offline batch")
+    run = lambda: spipe.probs_for_waveforms(chans)
+    best, took = best_wall(run)
+    audio_s = sum(len(w) for w in chans) / 16000
+    peak = peak_of(run)
+    print(f"multichannel 4 x {SECONDS} s, bf16: {launches['multichannel_bf16']} launches; rows vs "
+          f"float32 {d_mc:.3e} (limit 0.05); ShardedStreamingSession bit-equal to offline; "
+          f"{audio_s / best:.1f} audio-s per wall-s (best of 3) vs float32 {ctx['mc_rate']:.1f} = "
+          f"{audio_s / best / ctx['mc_rate']:.3f}x; peak {peak / 2**30:.3f} GiB vs "
+          f"{ctx['mc_peak'] / 2**30:.3f} GiB")
+    device_breakdown("probs_for_waveforms (4 channels, bf16)", run, best,
+                     work / "bf16_multichannel.trace.json")
+
+    # One bf16 sweep of phase 8's corpus (the default precision).
+    tdir, adir, paths = ctx["corpus"]
+    text = io.StringIO()
+    fbank_cuda.launches = 0
+    with contextlib.redirect_stdout(text):
+        rc = sweep.main(["--audio_dir", str(adir), "--transcript_dir", str(tdir), "--output_dir",
+                         str(work / "sweep_bf16"), "--split", "all", "--model_path", ctx["ckpt"],
+                         "--device", "cuda"])
+    launches["sweep_bf16"] = fbank_cuda.launches
+    check(rc == 0, f"bf16 sweep returned {rc}")
+    check(launches["sweep_bf16"] == ctx["sweep_launches"],
+          f"bf16 sweep: {launches['sweep_bf16']} fbank launches, the float32 sweep's buckets "
+          f"and warm-ups are {ctx['sweep_launches']}")
+    got = re.search(r"([\d.]+) audio-s per wall-s end to end, ([\d.]+) inference only",
+                    text.getvalue())
+    check(got is not None, "bf16 sweep: no summary line")
+    thresholds = parse_float_list(sweep.DEFAULT_THRESHOLDS)
+    min_lengths = parse_float_list(sweep.DEFAULT_MIN_LENGTHS)
+    n_grids = 0
+    for meeting, ps in paths.items():
+        mprobs, durations = spipe.probs_for_meeting(ps)
+        for c, (p, dur) in enumerate(zip(mprobs, durations)):
+            inst = smoothing.instances_from_device_probs(torch.from_numpy(p).cuda(), thresholds,
+                                                         min_lengths, fps=len(p) / dur)
+            for (t, ml), want_i in inst.items():
+                g = work / "sweep_bf16" / "all" / meeting / f"t_{t}" / f"l_{ml}" / f"chan{c}.TextGrid"
+                check(textgrid.read_laughter_intervals(str(g)) == want_i,
+                      f"{g}: the bf16 sweep differs from the bf16 ShardedPipeline's smoothing")
+                n_grids += 1
+    print(f"bf16 sweep of phase 8's corpus (default precision): {n_grids} TextGrids equal the "
+          f"smoothing of the in-process bf16 ShardedPipeline; {launches['sweep_bf16']} launches "
+          f"(as the float32 sweep's); "
+          f"{float(got[1]):.2f} audio-s per wall-s end to end, {float(got[2]):.2f} inference only "
+          f"on {card} (float32: phase 8)")
+    return launches
+
+
+def phase_bf16_train(card, work: Path, ctx: dict) -> None:
+    """bf16 training with float32 masters at full width on the card, held
+    against the port's bf16 step on the CPU at the JAX package's
+    mixed-precision tolerances; then one epoch of cli/train --precision
+    bfloat16 on phase 10's tables."""
+    import contextlib
+    import io
+
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import inference
+    from laughter_detection_icsi_tpu_torch.cli import segment_laughter as seg_cli
+    from laughter_detection_icsi_tpu_torch.cli import train as train_cli
+    from laughter_detection_icsi_tpu_torch.config import FEAT, MODEL_MAP
+    from laughter_detection_icsi_tpu_torch.eval import textgrid
+    from laughter_detection_icsi_tpu_torch.models import zoo
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda, smoothing
+    from laughter_detection_icsi_tpu_torch.train import Trainer, step_generator
+    from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
+
+    preset = MODEL_MAP["resnet_base"]
+    weights = {k: v.detach().cpu() for k, v in ctx["model"].state_dict().items()}
+
+    def trainer(dropout: float, device, compute_dtype="bfloat16") -> Trainer:
+        m = zoo.build(preset.model, dropout_rate=dropout, linear_layer_size=preset.linear_layer_size,
+                      filter_sizes=preset.filter_sizes)
+        m.load_state_dict(weights, strict=True)
+        return Trainer(m, device=device, compute_dtype=compute_dtype)
+
+    with torch.no_grad(), inference.strict_fp32():
+        feats = fbank_cuda.fbank_cuda(torch.from_numpy(ctx["pcm"]).to(DEVICE).float() / 32768.0, FEAT)
+    rng = np.random.default_rng(19)
+    window = torch.arange(100, device=DEVICE)
+
+    def batch(b: int) -> dict:
+        starts = torch.from_numpy(rng.integers(0, feats.shape[0] - 100, b)).to(DEVICE)
+        return {"inputs": feats[starts[:, None] + window],
+                "is_laugh": (rng.uniform(size=b) > 0.5).astype(np.float32)}
+
+    # (a) One step at dropout 0: the card against the port's bf16 step on the CPU.
+    b0 = batch(preset.batch_size)
+    card_t, cpu_t = trainer(0.0, DEVICE), trainer(0.0, "cpu")
+    opt_c, m_c = card_t.train_batch(card_t.init(), b0)
+    opt_h, m_h = cpu_t.train_batch(cpu_t.init(), {"inputs": b0["inputs"].cpu(),
+                                                  "is_laugh": b0["is_laugh"]})
+    loss_c, loss_h = float(m_c["loss"]), float(m_h["loss"])
+    check(abs(loss_c - loss_h) <= 2e-2 * abs(loss_h), f"bf16 step: loss card {loss_c} vs CPU {loss_h}")
+    want = cpu_t.model.state_dict()
+    worst, worst_k = 0.0, None
+    for k, v in card_t.model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            check(v.dtype == torch.int64, f"{k} is {v.dtype}")
+            continue
+        check(v.dtype == torch.float32, f"bf16 training: {k} is {v.dtype}, not float32")
+        a, b = v.cpu(), want[k]
+        excess = ((a - b).abs() - (5e-3 + 5e-2 * b.abs())).max().item()
+        if excess > worst or worst_k is None:
+            worst, worst_k = excess, k
+    check(worst <= 0, f"bf16 step: {worst_k} outside rtol 5e-2 / atol 5e-3 of the CPU's by {worst:.3e}")
+    check(all(t.dtype == torch.float32 for tree in (opt_c.mu, opt_c.nu) for t in tree.values()),
+          "bf16 training: an Adam moment is not float32")
+    print(f"(a) bf16 step, dropout 0, B={preset.batch_size}: loss card {loss_c:.6f} vs CPU bf16 "
+          f"{loss_h:.6f} (rtol 2e-2); parameters and BN buffers within rtol 5e-2 / atol 5e-3 of the "
+          f"CPU's (closest margin {-worst:.3e}, at {worst_k}); masters, Adam moments and BN "
+          f"buffers float32")
+
+    # The backward by itself: one Adam step at lr 1e-3 moves an element by at
+    # most ~1e-3, so the parameters above say little of the gradients.  The
+    # card's bf16 gradients against the CPU's on three batches; the CPU's
+    # float32 gradients and the card's scaled by 0.9 are read beside them,
+    # as faults the limits must catch.
+    def grads(bt, device, compute_dtype="bfloat16"):
+        t = trainer(0.0, device, compute_dtype)
+        x, y = t._prep({"inputs": bt["inputs"].to(device), "is_laugh": bt["is_laugh"]})
+        return {k: g.float().cpu() for k, g in t.loss_and_grads(x, y)[2].items()}
+
+    for i, bt in enumerate((b0, batch(preset.batch_size), batch(preset.batch_size))):
+        g_card, g_cpu, g_f32 = grads(bt, DEVICE), grads(bt, "cpu"), grads(bt, "cpu", None)
+        scale = max(1.0, max(g.abs().max().item() for g in g_cpu.values()))
+        weights_k = [k for k, g in g_cpu.items() if g.ndim >= 2]
+
+        def grad_err(g):
+            return max((g[k] - g_cpu[k]).abs().max().item() for k in g_cpu) / scale
+
+        def min_cos(g):
+            cos = {k: float(torch.nn.functional.cosine_similarity(
+                g[k].double().flatten(), g_cpu[k].double().flatten(), dim=0)) for k in weights_k}
+            k = min(cos, key=cos.get)
+            return cos[k], k
+
+        err, (cos, cos_k) = grad_err(g_card), min_cos(g_card)
+        err_f32, (cos_f32, _) = grad_err(g_f32), min_cos(g_f32)
+        err_scaled = grad_err({k: 0.9 * g for k, g in g_card.items()})
+        check(err <= BF16_GRAD_TOL, f"bf16 gradients, batch {i}: card vs CPU {err:.3e} of "
+              f"max(1, max|g|) > {BF16_GRAD_TOL} (CPU float32 reads {err_f32:.3e})")
+        check(cos >= BF16_GRAD_COS and cos > cos_f32,
+              f"bf16 gradients, batch {i}: {cos_k} at cosine {cos:.4f} with the CPU's, "
+              f"below {BF16_GRAD_COS} or the CPU float32 gradients' {cos_f32:.4f}")
+        print(f"(a) bf16 gradients, batch {i}, card vs CPU bf16: {err:.4e} of max(1, max|g|) = "
+              f"{scale:.4g} (limit {BF16_GRAD_TOL}; CPU float32 reads {err_f32:.4e}, the card's "
+              f"x 0.9 {err_scaled:.4e}); least cosine of a weight's gradient {cos:.4f} at {cos_k} "
+              f"over {len(weights_k)} weights (limit {BF16_GRAD_COS} and above CPU float32's "
+              f"{cos_f32:.4f})")
+
+    # (b) 20 steps at dropout 0.5 on one batch.
+    t = trainer(0.5, DEVICE)
+    opt, losses = t.init(), []
+    for step in range(20):
+        opt, m = t.train_batch(opt, b0, step_generator(0, step, DEVICE))
+        losses.append(m["loss"])
+    losses = torch.stack(losses).cpu().numpy()
+    check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
+          f"bf16, 20 steps on one batch: losses {losses[0]:.4f} ... {losses[-1]:.4f}")
+    print(f"(b) bf16, 20 steps, dropout 0.5, one batch: loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    # (c) Steps per second beside phase 9's float32.
+    for b in TRAIN_SIZES:
+        t = trainer(0.5, DEVICE)
+        opt = t.init()
+        bb = batch(b)
+        n_steps = 50 if b <= 64 else 20
+        gens = [step_generator(1, s, DEVICE) for s in range(n_steps)]
+        for s in range(3):
+            opt, _ = t.train_batch(opt, bb, gens[s])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for s in range(n_steps):
+                opt, _ = t.train_batch(opt, bb, gens[s])
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end) / n_steps)
+        peak = torch.cuda.max_memory_allocated()
+        f32 = ctx["train_rate"][b]
+        print(f"(c) bf16 B={b} on {card}: {1e3 / min(ms):.2f} train steps per second (best of 3 x "
+              f"{n_steps}: {', '.join(f'{d:.3f}' for d in ms)} ms a step) vs float32 {f32:.2f} "
+              f"(phase 9) = {1e3 / min(ms) / f32:.3f}x; peak device memory {peak / 2**30:.3f} GiB")
+        train_breakdown(f"bf16 B={b}", lambda: t.train_batch(opt, bb, gens[0]),
+                        work / f"train_bf16_{b}.trace.json")
+
+    # (d) cli/train --precision bfloat16, one epoch, resident; its checkpoint
+    # loads in float32 and segments through the CLI.
+    root, dfs, feats_dir, adir = ctx["train_data"]
+    out_dir = root / "bf16"
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = train_cli.main(["--config", "resnet_base", "--data_root", str(root), "--data_dfs_dir",
+                             str(dfs), "--feats_dir", str(feats_dir), "--signals_dir", str(adir),
+                             "--device", DEVICE, "--seed", "3", "--checkpoint_dir", str(out_dir),
+                             "--precision", "bfloat16", "--device_cache", "on"])
+    epoch_s = time.perf_counter() - t0
+    check(rc == 0, f"cli/train --precision bfloat16 returned {rc}: {text.getvalue()[-600:]}")
+    loaded = ckpt_lib.load_checkpoint(str(out_dir / "last.ckpt.npz"))
+    check(loaded["epoch"] == 1 and all(
+        v.dtype == (torch.int64 if k.endswith("num_batches_tracked") else torch.float32)
+        for k, v in loaded["state_dict"].items()), "the bf16 run's checkpoint is not float32")
+    trained = zoo.build(preset.model, dropout_rate=0.0, linear_layer_size=preset.linear_layer_size,
+                        filter_sizes=preset.filter_sizes)
+    best = ckpt_lib.resolve_checkpoint(str(out_dir))  # what the CLI's --model_path reads
+    trained.load_state_dict(ckpt_lib.load_checkpoint(best)["state_dict"], strict=True)
+    pipe = inference.LaughterPipeline(trained, settings=inference.settings_from_flags(device=DEVICE),
+                                      device=DEVICE)
+    probs, _ = pipe.probs_for_file(str(ctx["wav"]))
+    check_probs(probs, ctx["probs"].shape, "bf16-trained checkpoint")
+    thr = midway_threshold(probs)
+    out = work / "out_bf16_trained"
+    rc = seg_cli.main(["--model_path", str(out_dir), "--input_audio_file", str(ctx["wav"]),
+                       "--output_dir", str(out), "--thresholds", f"{thr}", "--min_lengths", "0.2",
+                       "--save_to_textgrid", "True", "--save_to_audio_files", "False",
+                       "--device", DEVICE])
+    check(rc == 0, f"segment CLI on the bf16-trained checkpoint returned {rc}")
+    got = textgrid.read_laughter_intervals(str(out / f"t_{thr}" / "l_0.2" / "meeting.TextGrid"))
+    check(got == smoothing.get_laughter_instances(probs, [thr], [0.2])[(thr, 0.2)],
+          "the bf16-trained checkpoint's TextGrid differs from LaughterPipeline's")
+    steps = loaded["global_step"]
+    print(f"(d) cli/train --precision bfloat16 --device_cache on: one epoch of {steps} steps in "
+          f"{epoch_s:.1f} s on {card} (float32 resident: phase 10 (c)); the checkpoint is float32; "
+          f"{Path(best).name} loads and segments through cli/segment_laughter (bf16 default): "
+          f"{len(got)} instances at threshold {thr}, equal to LaughterPipeline's smoothing")
+
+
+#: Run in a fresh interpreter by the export phase: the serving host's side
+#: of an e2e artifact, which imports only the port's export and host_prep.
+E2E_HOST = r"""
+import json, sys, time
+import numpy as np
+import torch
+from laughter_detection_icsi_tpu_torch import export, host_prep
+art_path, wav_npy, out_npy, bucket = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+art = export.load(art_path)
+pcm = np.load(wav_npy)
+geo = host_prep.BucketGeometry(bucket_frames=bucket)
+buckets = list(host_prep.bucket_inputs(pcm, settings=geo))
+export.fbank_cuda.launches = 0
+probs = torch.cat([art.call(buf, valid)[:n] for buf, valid, n in buckets]).cpu().numpy()
+launches = export.fbank_cuda.launches
+np.save(out_npy, probs)
+bufs = [(torch.from_numpy(b).cuda(), torch.tensor(v, device="cuda")) for b, v, _ in buckets]
+for b, v in bufs:
+    art.call(b, v)
+per = []
+for _ in range(3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b, v in bufs:
+        art.call(b, v)
+    torch.cuda.synchronize()
+    per.append(1e3 * (time.perf_counter() - t0) / len(bufs))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pandas", "lxml"))
+print(json.dumps({"launches": launches, "buckets": len(buckets), "ms_per_bucket": per,
+                  "precision": art.precision, "device": str(art.device), "forbidden": loaded}))
+"""
+
+
+def phase_export(card, work: Path, ctx: dict) -> int:
+    """cli/export_model's window and e2e artifacts on the card, each loaded
+    back and held against the live model or pipeline (the e2e artifact in a
+    fresh process that imports only export and host_prep), and
+    cli/convert_checkpoint's round trip; returns the kernel launches inside
+    the e2e artifact."""
+    import contextlib
+    import io
+
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import export, host_prep, inference
+    from laughter_detection_icsi_tpu_torch.cli import convert_checkpoint, export_model
+    from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
+
+    model, ckpt = ctx["model"], ctx["ckpt"]
+
+    def cli(argv):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = export_model.main(argv)
+        check(rc == 0, f"export_model {' '.join(argv)} returned {rc}")
+        return text.getvalue()
+
+    rng = np.random.default_rng(23)
+    bf16_model = inference.cast_model_bf16(model).eval()
+    for prec, tol in (("float32", 1e-6), ("bfloat16", 2e-2)):
+        path = work / f"windows_{prec}.pt2"
+        said = cli(["--model_path", ckpt, "--what", "windows", "--precision", prec,
+                    "--out", str(path), "--device", "cuda"])
+        art = export.load(str(path))
+        live = model if prec == "float32" else bf16_model
+        errs = []
+        for b in (1, 37, 6144):
+            x = torch.from_numpy((rng.standard_normal((b, 1, 100, 44)) * 3).astype(np.float32)).cuda()
+            got = art.call(x)
+            with torch.inference_mode(), inference.precision_scope(prec):
+                want = live(x.to(next(live.parameters()).dtype)).float()
+            check(got.shape == (b,) and got.dtype == torch.float32, f"windows artifact: {got.shape}")
+            errs.append((got - want).abs().max().item())
+            check(errs[-1] <= tol, f"{prec} windows artifact at B={b}: {errs[-1]:.3e} > {tol}")
+        print(f"windows artifact, {prec}, symbolic batch ({path.stat().st_size:,} bytes; "
+              f"{said.splitlines()[-1]}): at B = 1, 37, 6144 max |artifact - live| = "
+              f"{', '.join(f'{e:.3e}' for e in errs)} (limit {tol})")
+
+    # The e2e artifact at chunk and bucket 6144, run by a fresh process.
+    path = work / "e2e.pt2"
+    said = cli(["--model_path", ckpt, "--what", "e2e", "--wave_dtype", "int16", "--chunk", "6144",
+                "--bucket_frames", "6144", "--out", str(path), "--device", "cuda"])
+    np.save(work / "pcm.npy", ctx["pcm"])
+    proc = subprocess.run([sys.executable, "-c", E2E_HOST, str(path), str(work / "pcm.npy"),
+                           str(work / "e2e_probs.npy"), "6144"],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"the e2e host process exited {proc.returncode}: {proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not res["forbidden"], f"the e2e host loaded {res['forbidden']}")
+    n_buckets = -(-host_prep.num_frames(len(ctx["pcm"])) // 6144)
+    check(res["launches"] == res["buckets"] == n_buckets,
+          f"e2e artifact: {res['launches']} launches for {res['buckets']} buckets")
+    got = np.load(work / "e2e_probs.npy")
+    pipe = inference.LaughterPipeline(model, device="cuda", settings=inference.InferenceSettings(
+        chunk=6144, bucket_frames=6144))  # the artifact's settings, float32
+    want = pipe.probs_for_waveform(ctx["pcm"])
+    d_e2e = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
+    check(d_e2e <= 1e-6, f"e2e artifact vs LaughterPipeline: {d_e2e:.3e} > 1e-6")
+    padded, t = host_prep.host_pad_waveform(ctx["pcm"])
+    bufs = list(pipe.bucket_buffers(padded, t))
+    live_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for buf, valid, _ in bufs:
+            pipe._bucket_probs(buf, valid)
+        torch.cuda.synchronize()
+        live_ms.append(1e3 * (time.perf_counter() - t0) / len(bufs))
+    print(f"e2e artifact ({path.stat().st_size:,} bytes; {said.splitlines()[-1]}) in a fresh "
+          f"process that imports only export and host_prep (no jax, pandas or lxml loaded): "
+          f"{res['launches']} fbank launches for {res['buckets']} buckets; "
+          + ("bit-equal to" if d_e2e == 0 else f"max |diff| {d_e2e:.3e} (limit 1e-6) from")
+          + f" LaughterPipeline.probs_for_waveform; {min(res['ms_per_bucket']):.3f} ms a bucket "
+          f"(host clock, best of 3, the buffers on the card) vs the live pipeline's "
+          f"{min(live_ms):.3f} ms (the same, from host buffers) on {card}")
+
+    # cli/convert_checkpoint: .ckpt.npz -> .pth.tar -> .ckpt.npz.
+    pth, back = str(work / "conv.pth.tar"), str(work / "conv_back.ckpt.npz")
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(convert_checkpoint.main([ckpt, pth]) == 0 and convert_checkpoint.main([pth, back]) == 0,
+              "convert_checkpoint failed")
+    a, b = ckpt_lib.load_checkpoint(ckpt)["state_dict"], ckpt_lib.load_checkpoint(back)["state_dict"]
+    check(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a),
+          "the converted checkpoint's tensors differ")
+    print(f"cli/convert_checkpoint .ckpt.npz -> .pth.tar -> .ckpt.npz: {len(a)} tensors equal")
+    return res["launches"]
+
+
 def train_breakdown(what: str, step, trace_path: Path, steps: int = 5):
     """Profile ``steps`` train steps (torch.profiler) and print the device's
     busy share of their wall and its time by region (the Trainer's
@@ -1792,12 +2380,11 @@ def train_breakdown(what: str, step, trace_path: Path, steps: int = 5):
     launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
                  if e.get("ph") == "X" and e.get("cat") in ("cuda_runtime", "cuda_driver")
                  and "correlation" in e.get("args", {})}
-    conv = ("conv", "cudnn", "xmma", "dgrad", "wgrad", "fprop", "winograd")
     table, busy_us, end = {}, 0.0, -math.inf
     for e in dev:
         ts = launch_ts.get(e.get("args", {}).get("correlation"))
         region = next((n for a, b, n in regions if ts is not None and a <= ts <= b), "other")
-        kind = "convs" if any(c in e["name"].lower() for c in conv) else "the rest"
+        kind = "convs" if kernel_kind(e["name"]) in ("convs", "layout") else "the rest"
         table[(region, kind)] = table.get((region, kind), 0.0) + float(e["dur"]) / 1e3
     for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev):
         if b > end:
@@ -1812,12 +2399,36 @@ def train_breakdown(what: str, step, trace_path: Path, steps: int = 5):
     return busy_us / 1e3 / wall_ms
 
 
+#: Kernel-name fragments of the convolutions (cuDNN's and its GEMM engines;
+#: the head's small matmuls land here too).
+CONV_NAMES = ("conv", "cudnn", "xmma", "dgrad", "wgrad", "fprop", "winograd", "gemm", "cutlass")
+
+
+def kernel_kind(name: str) -> str:
+    """A device op's kind for the breakdowns: fbank, layout (cuDNN's
+    NCHW <-> NHWC transposes around a bf16 conv), convs, cat, copies or
+    elementwise (BN, ReLU, pads, casts, fills, gathers: the rest)."""
+    low = name.lower()
+    if "fbank_kernel" in name:
+        return "fbank"
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "layout"
+    if any(c in low for c in CONV_NAMES):
+        return "convs"
+    if "catarray" in low:
+        return "cat"
+    if low.startswith("memcpy") or low.startswith("memset"):
+        return "copies"
+    return "elementwise"
+
+
 def device_breakdown(what: str, fn, best_s: float, trace_path: Path) -> None:
     """Profile one call of ``fn`` (torch.profiler) and print where its device
     time goes: the busy share of the call's wall time, the kernels with the
-    most device time, and the fbank kernel's share.  A profiler that records
-    no device activity leaves these unmeasured: that says nothing about the
-    port, so it is reported and not failed."""
+    most device time, the shares of each kind (``kernel_kind``) and the
+    fbank kernel's share.  A profiler that records no device activity
+    leaves these unmeasured: that says nothing about the port, so it is
+    reported and not failed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1850,6 +2461,11 @@ def device_breakdown(what: str, fn, best_s: float, trace_path: Path) -> None:
           f"({100 * busy_ms / (1e3 * best_s):.1f}% of the best unprofiled e2e)")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {100 * us / 1e3 / total_ms:5.1f}% {us / 1e3:9.3f} ms  x{n:<5d} {name[:100]}")
+    kinds = {}
+    for name, (_, us) in by_name.items():
+        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + us / 1e3
+    print("  by kind: " + ", ".join(f"{k} {100 * ms / total_ms:.1f}%"
+                                    for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])))
     fb_ms = sum(us for name, (_, us) in by_name.items() if "fbank_kernel" in name) / 1e3
     print(f"  fbank kernel: {fb_ms:.3f} ms = {100 * fb_ms / total_ms:.2f}% of device time")
 
@@ -1895,6 +2511,12 @@ def main() -> int:
         trained = phase_train(card, work, ctx)
         header("10. training from a corpus")
         featurized = phase_corpus_train(card, work, ctx)
+        header("11. bf16 serving")
+        bf16 = phase_bf16_serving(card, work, ctx)
+        header("12. bf16 training")
+        phase_bf16_train(card, work, ctx)
+        header("13. export")
+        artifact = phase_export(card, work, ctx)
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -1906,13 +2528,16 @@ def main() -> int:
     by_path = {"windows": ctx["launches"], "fused_conv": fused, "serve": streamed,
                "multichannel": batched, "sweep": swept["launches"],
                "sweep_packed": swept["packed"], "sweep_fused_conv": swept["fused"],
-               "training_features": trained, "compute_features": featurized["launches"]}
+               "training_features": trained, "compute_features": featurized["launches"],
+               **bf16, "e2e_artifact": artifact}
     print(f"fbank launches per path: windows {ctx['launches']} ({ctx['n_buckets']} buckets), "
           f"fused_conv {fused} (one file), serve replay {streamed} ({ctx['n_buckets']} buckets "
           f"+ warm-up), multichannel {batched} (bucket batches of 4 channels), corpus sweep "
           f"{swept['launches']} (raw), {swept['packed']} (packed), {swept['fused']} (fused_conv), "
           f"training features {trained}, compute_features {featurized['launches']} (30,000-frame "
-          f"buckets)")
+          f"buckets); bf16: windows {bf16['windows_bf16']}, fused_conv {bf16['fused_conv_bf16']}, "
+          f"serve replay {bf16['serve_bf16']}, multichannel {bf16['multichannel_bf16']}, sweep "
+          f"{bf16['sweep_bf16']}; the e2e artifact {artifact} ({ctx['n_buckets']} buckets)")
     entry["max_abs_err"] = max(entry["max_abs_err"], swept["max_err"], featurized["max_err"])
     entry = {"name": entry.pop("name"), "route": entry.pop("route"),
              "source": entry.pop("source"), "replaces": entry.pop("replaces"),

@@ -11,9 +11,8 @@ The same flags as the JAX package's ``cli/segment_laughter.py``, plus
 ``--mode fused_conv`` runs the conv stack once over the whole track
 (models/fully_conv.py).  ``--transfer_codec packed|auto`` ships int16
 buckets as a bit-packed wire decoded on the device (ops/pcm_pack.py;
-windows mode).  ``--precision bfloat16``, which this port does not carry
-yet, parses, then fails with an error naming the ROADMAP item that ports
-it.
+windows mode).  ``--precision`` defaults to bfloat16 on the card and
+float32 on the CPU, as the JAX CLI's on an accelerator and on the CPU.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--channel", type=int, default=0, help="audio channel to read")
     p.add_argument("--precision", type=str, default=None,
                    choices=["float32", "bfloat16"],
-                   help="default float32 (bfloat16 is not ported yet)")
+                   help="default: bfloat16 on accelerators, float32 on CPU")
     p.add_argument("--chunk", type=int, default=None,
                    help="windows per device step (default: 6144 on the "
                         "card, 1024 on the CPU)")

@@ -24,8 +24,8 @@ Run it as
   arecord -f S16_LE -r 16000 -t raw | \\
       python -m laughter_detection_icsi_tpu_torch.cli.serve --model_path ck/
 
-``--precision bfloat16`` parses, then fails with an error naming the
-ROADMAP item that ports it.
+``--precision`` defaults to bfloat16 on the card and float32 on the CPU,
+as the JAX CLI's on an accelerator and on the CPU.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "every bucket_frames x 10 ms of audio")
     p.add_argument("--precision", type=str, default=None,
                    choices=["float32", "bfloat16"],
-                   help="default float32 (bfloat16 is not ported yet)")
+                   help="default: bfloat16 on accelerators, float32 on CPU")
     p.add_argument("--save_probs", type=str, default=None,
                    help="write the full [channels, T] probability array "
                         "(.npy) at end of stream")

@@ -70,7 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated subset of meeting IDs")
     p.add_argument("--precision", type=str, default=None,
                    choices=["float32", "bfloat16"],
-                   help="default float32 (bfloat16 is not ported yet)")
+                   help="default: bfloat16 on accelerators, float32 on CPU")
     p.add_argument("--chunk", type=int, default=None,
                    help="windows per device step (default: 6144 on the "
                         "card, 1024 on the CPU)")

@@ -24,15 +24,21 @@ the dilated conv stack once over it (models/fully_conv.py).
 ``StreamingSession`` feeds live PCM through the same bucket body, so its
 probabilities equal the offline ones bit for bit.
 
-The pipeline runs on the device it is given, ``cuda`` by default, and in
-float32 with TF32 off (``strict_fp32``).  Features of the JAX pipeline that
-this port does not carry yet are refused with an error naming the ROADMAP
-item that will port them.
+The pipeline runs on the device it is given, ``cuda`` by default.  The
+featurizer runs in float32 with TF32 off (``strict_fp32``).  The classifier
+runs in float32 too, or, with ``precision='bfloat16'`` (the CLI default on
+the card, as JAX's on an accelerator), on a bfloat16 copy of the model:
+the masked features are cast once at the model boundary, everything inside
+runs in bf16 and the probabilities come back as float32
+(``precision_scope`` keeps cuBLAS's bf16 reductions in float32, as XLA's).
+Features of the JAX pipeline that this port does not carry yet are refused
+with an error naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import time
 import warnings
@@ -64,7 +70,7 @@ class InferenceSettings:
     window: int = 100  # frames per model input (config.FEAT.num_samples)
     chunk: int = 6144  # windows evaluated per device step
     bucket_frames: int = 6144  # frames per fixed-size bucket (~61 s)
-    precision: str = "float32"  # 'bfloat16' is not ported yet
+    precision: str = "float32"  # 'bfloat16': settings_from_flags' default on the card
     # Ship 16-bit PCM to the device as int16 and scale by 1/32768 there:
     # identical numbers at half the host->device bytes.
     transfer_int16: bool = True
@@ -97,8 +103,6 @@ class InferenceSettings:
                 "mode='fused_conv' (the whole-track graph has no packed "
                 "decode stage); use 'raw', or the 'windows' mode"
             )
-        if self.precision == "bfloat16":
-            raise _not_ported("precision='bfloat16'", 6)
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -120,14 +124,15 @@ def settings_from_flags(
     **kwargs,
 ) -> InferenceSettings:
     """The CLI defaults: chunk and bucket 6144 on the card, 1024 on the CPU;
-    float32 everywhere.  ``is not None``, not ``or``: an explicit 0 must
-    reach InferenceSettings' validation and fail loudly."""
+    bfloat16 on the card and float32 on the CPU, as the JAX package's on an
+    accelerator and on the CPU.  ``is not None``, not ``or``: an explicit 0
+    must reach InferenceSettings' validation and fail loudly."""
     on_card = torch.device("cuda" if device is None else device).type == "cuda"
     default = 6144 if on_card else 1024
     return InferenceSettings(
         chunk=chunk if chunk is not None else default,
         bucket_frames=bucket_frames if bucket_frames is not None else default,
-        precision=precision if precision is not None else "float32",
+        precision=precision if precision is not None else ("bfloat16" if on_card else "float32"),
         **kwargs,
     )
 
@@ -146,6 +151,37 @@ def strict_fp32():
         conv.fp32_precision, mm.fp32_precision = prev
 
 
+@contextlib.contextmanager
+def precision_scope(precision: str = "float32"):
+    """``strict_fp32`` for the featurizer and a float32 classifier; for
+    ``precision='bfloat16'`` also cuBLAS's reduced-precision bf16
+    reductions off, so a bf16 product accumulates in float32 as XLA's does
+    (``allow_bf16_reduced_precision_reduction`` is on by default).
+    Restores the previous settings on exit."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_bf16_reduced_precision_reduction
+    with strict_fp32():
+        if precision == "bfloat16":
+            mm.allow_bf16_reduced_precision_reduction = False
+        try:
+            yield
+        finally:
+            mm.allow_bf16_reduced_precision_reduction = prev
+
+
+def compute_dtype(precision: str) -> torch.dtype:
+    """The classifier's dtype for a ``precision`` setting."""
+    return torch.bfloat16 if precision == "bfloat16" else torch.float32
+
+
+def cast_model_bf16(model: torch.nn.Module) -> torch.nn.Module:
+    """A bfloat16 copy of ``model`` (JAX ``cast_tree_bf16``): the floating
+    parameters and buffers (BN running statistics included, or the first
+    BN would re-promote the activations) are cast, ``num_batches_tracked``
+    stays an integer, and the caller's model is left as it was."""
+    return copy.deepcopy(model).to(torch.bfloat16)
+
+
 def int16_transfer_eligible(meta, settings) -> bool:
     """May this source ship to the device as raw int16 (16-bit PCM or
     decoded shorten)?"""
@@ -156,13 +192,18 @@ def int16_transfer_eligible(meta, settings) -> bool:
     )
 
 
-def upload_wave(buf: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One host buffer to the device as float32: int16 ships as int16 and
-    is scaled by 1/32768 there (the same numbers as scaling on the host)."""
-    wave = torch.from_numpy(buf).to(device)
+def scale_pcm(wave: torch.Tensor) -> torch.Tensor:
+    """int16 PCM -> float32 scaled by 1/32768 where it lies; float PCM as
+    it is."""
     if wave.dtype == torch.int16:
         wave = wave.float() * (1.0 / 32768.0)
     return wave
+
+
+def upload_wave(buf: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host buffer to the device as float32: int16 ships as int16 and
+    is scaled by 1/32768 there (the same numbers as scaling on the host)."""
+    return scale_pcm(torch.from_numpy(buf).to(device))
 
 
 def upload_packed(
@@ -215,21 +256,25 @@ def check_pcm(wave: np.ndarray) -> None:
 
 
 def classify_bucket(
-    model: torch.nn.Module, feats: torch.Tensor, valid: int,
+    model: torch.nn.Module, feats: torch.Tensor, valid: Union[int, torch.Tensor],
     settings: InferenceSettings, use_shared_stem: bool,
 ) -> torch.Tensor:
-    """One bucket's features ([bucket + window - 1, F], the bucket and its
-    halo) -> its [n_chunks * chunk] probabilities.  Frames at or past
-    ``valid`` are zeroed (the reference InferenceDataset's zero-pad tail),
-    then one window per frame is classified, ``chunk`` windows at a time:
-    through the shared stem, or as a naive window batch.  The classify step
-    of every windows-mode path, a multichannel batch's rows included."""
+    """One bucket's float32 features ([bucket + window - 1, F], the bucket
+    and its halo) -> its [n_chunks * chunk] float32 probabilities.  Frames
+    at or past ``valid`` (an int, or a 0-d tensor, which an exported graph
+    takes: the mask is one comparison, with no branch on it) are zeroed
+    (the reference InferenceDataset's zero-pad tail) and the features cast
+    to the settings' compute dtype, then one window per frame is
+    classified, ``chunk`` windows at a time: through the shared stem, or as
+    a naive window batch.  The classify step of every windows-mode path, a
+    multichannel batch's rows included."""
     s = settings
     n_chunks = -(-s.bucket_frames // s.chunk)
     # Enough rows that the last window of the last chunk reads in bounds.
     feat_rows = n_chunks * s.chunk + s.window - 1
     valid_rows = torch.arange(feats.shape[0], device=feats.device)[:, None] < valid
-    feats = F.pad(torch.where(valid_rows, feats, 0.0), (0, 0, 0, feat_rows - feats.shape[0]))
+    feats = torch.where(valid_rows, feats, 0.0).to(compute_dtype(s.precision))
+    feats = F.pad(feats, (0, 0, 0, feat_rows - feats.shape[0]))
     starts = [i * s.chunk for i in range(n_chunks)]
     if not use_shared_stem:
         outs = [
@@ -251,7 +296,7 @@ def classify_bucket(
             shared_stem.chunk_probs_from_track(model, track1, feats, i, s.chunk, s.window)
             for i in starts
         ]
-    return torch.cat(outs)
+    return torch.cat(outs).float()
 
 
 def track_wave_len(total_frames: int, feat_cfg: FeatConfig = FEAT) -> int:
@@ -264,28 +309,34 @@ def track_wave_len(total_frames: int, feat_cfg: FeatConfig = FEAT) -> int:
 def fused_conv_probs(
     model: torch.nn.Module, bufs: np.ndarray, valid: Sequence[int],
     feat_cfg: FeatConfig, window: int, device: torch.device,
+    precision: str = "float32",
 ) -> torch.Tensor:
     """mode='fused_conv' over a channel batch: [C, wave_len] whole-track
-    buffers and each channel's frame count -> [C, total] probabilities on
-    the device.  One fbank launch featurizes the batch; frames at or past a
-    channel's count are zeroed; the dilated conv stack then runs channel
-    by channel, at most ``fully_conv.MAX_BLOCKS`` blocks a dispatch
+    buffers and each channel's frame count -> [C, total] float32
+    probabilities on the device.  One fbank launch featurizes the batch;
+    frames at or past a channel's count are zeroed and the features cast to
+    ``precision``'s dtype (``model`` is in that dtype); the dilated conv
+    stack then runs channel by channel, at most ``fully_conv.MAX_BLOCKS`` blocks a dispatch
     (``fully_conv_probs_blocked``), so the live activations are bounded
     whatever the channel count and the track length.  The tail past a
     channel's count holds a bias-leak constant, not 0: callers slice it
     off."""
-    with torch.inference_mode(), strict_fp32():
+    with torch.inference_mode(), precision_scope(precision):
         feats = fbank_cuda(upload_wave(bufs, device), host_prep.snip_cfg(feat_cfg))
         rows = torch.arange(feats.shape[1], device=device)
         counts = torch.as_tensor(np.asarray(valid, dtype=np.int64), device=device)
         feats = torch.where((rows[None, :] < counts[:, None])[:, :, None], feats, 0.0)
+        feats = feats.to(compute_dtype(precision))
         return torch.stack(
             [fully_conv.fully_conv_probs_blocked(model, f, window) for f in feats]
-        )
+        ).float()
 
 
 class LaughterPipeline:
-    """Featurize + classify for one model, on one device."""
+    """Featurize + classify for one model, on one device.  In float32 the
+    pipeline moves the caller's model to the device and classifies with it;
+    in bfloat16 it classifies with a bf16 copy (``cast_model_bf16``) and
+    the caller's model is left as it was."""
 
     def __init__(
         self,
@@ -295,6 +346,8 @@ class LaughterPipeline:
         device: Union[None, str, torch.device] = None,
     ):
         self.device = resolve_device(device)
+        if settings.precision == "bfloat16":
+            model = cast_model_bf16(model)
         self.model = model.to(self.device).eval()
         self.feat_cfg = feat_cfg
         self.settings = settings
@@ -353,24 +406,23 @@ class LaughterPipeline:
         [n_chunks * chunk] probabilities, on the device.  The one bucket
         body: the offline loop and StreamingSession both run through it,
         which keeps streaming bit-equal to offline."""
-        with torch.inference_mode(), strict_fp32():
-            # [bucket + window - 1, F]: the bucket and its halo.
-            feats = fbank_cuda(self._upload(buf), host_prep.snip_cfg(self.feat_cfg))
-            return classify_bucket(self.model, feats, valid, self.settings, self.shared_stem)
+        with torch.inference_mode(), precision_scope(self.settings.precision):
+            return self.bucket_body(self._upload(buf), valid)
+
+    def bucket_body(self, wave: torch.Tensor, valid: Union[int, torch.Tensor]) -> torch.Tensor:
+        """A bucket's float32 wave on the device -> its probabilities: the
+        fbank op over the bucket and its halo ([bucket + window - 1, F]),
+        then ``classify_bucket``.  What ``export.export_bucket_pipeline``
+        traces, so the artifact runs this body."""
+        feats = fbank_cuda(wave, host_prep.snip_cfg(self.feat_cfg))
+        return classify_bucket(self.model, feats, valid, self.settings, self.shared_stem)
 
     def bucket_buffers(self, padded: np.ndarray, t: int):
         """Yield ``(buf, valid_frames, keep_frames)`` per bucket: the
         fixed-size buffers, valid-frame counts and kept-frame counts the
-        offline loop executes."""
-        bucket = self.settings.bucket_frames
-        shift = self.feat_cfg.frame_shift_samples
-        for k in range(-(-t // bucket)):
-            lo = k * bucket * shift
-            buf = np.zeros(self.wave_len, dtype=padded.dtype)
-            src = padded[lo : lo + self.wave_len]
-            buf[: len(src)] = src
-            valid = min(t - k * bucket, bucket + self.settings.window - 1)
-            yield buf, valid, min(bucket, t - k * bucket)
+        offline loop executes (``host_prep.bucket_slices``, the e2e
+        artifact's host prep too)."""
+        return host_prep.bucket_slices(padded, t, self.settings, self.feat_cfg)
 
     def probs_for_waveform(self, wave: np.ndarray) -> np.ndarray:
         """[n] waveform -> [T] laughter probabilities (one per 10 ms frame).
@@ -403,7 +455,8 @@ class LaughterPipeline:
         buf = np.zeros((1, track_wave_len(total, self.feat_cfg)), dtype=padded.dtype)
         buf[0, : len(padded)] = padded
         probs = fused_conv_probs(
-            self.model, buf, [t], self.feat_cfg, self.settings.window, self.device
+            self.model, buf, [t], self.feat_cfg, self.settings.window, self.device,
+            self.settings.precision,
         )
         return probs[0, :t]
 

@@ -47,8 +47,8 @@ def _conv(x: torch.Tensor, conv, f_stride: int, t_dil: int,
     context)."""
     kh, kw = conv.weight.shape[2], conv.weight.shape[3]
     pad_t = 0 if valid_t else t_dil * (kh // 2)
-    return F.conv2d(x, conv.weight, conv.bias, stride=(1, f_stride),
-                    padding=(pad_t, kw // 2), dilation=(t_dil, 1))
+    return L.conv_bias(x, conv.weight, conv.bias, stride=(1, f_stride),
+                       padding=(pad_t, kw // 2), dilation=(t_dil, 1))
 
 
 def _bn4(x: torch.Tensor, bn: Optional[torch.nn.Module]) -> torch.Tensor:
@@ -71,8 +71,8 @@ def _block(x: torch.Tensor, blk: ResidualBlock, f_stride: int, t_dil_in: int,
     out = torch.relu(_bn4(_conv(x, blk.conv1, f_stride, t_dil_in, valid_t), blk.bn1))
     out = _bn4(_conv(out, blk.conv2, 1, t_dil_out, valid_t), blk.bn2)
     if blk.shortcut is not None:
-        sc = F.conv2d(x, blk.shortcut[0].weight, blk.shortcut[0].bias,
-                      stride=(1, f_stride))
+        sc = L.conv_bias(x, blk.shortcut[0].weight, blk.shortcut[0].bias,
+                         stride=(1, f_stride))
         sc = _bn4(sc, blk.shortcut_bn())
     else:
         sc = x

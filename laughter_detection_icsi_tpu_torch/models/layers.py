@@ -5,7 +5,9 @@ Each function takes the torch module that holds the parameters (an
 the JAX package's ``models/layers.py`` does, in particular eval BatchNorm
 as ``(x - mean) * (weight * rsqrt(var + eps)) + bias`` — the same
 expression and rounding order, not ``F.batch_norm``.  Shared-stem inference
-relies on every path rounding alike (models/shared_stem.py).
+relies on every path rounding alike (models/shared_stem.py).  The layers run
+in the dtype of what they are given; in bf16 they round where XLA rounds
+the JAX package's ops (``_rsqrt``, ``conv_bias``).
 
 Train mode, as JAX's: BatchNorm normalizes by the batch's biased variance
 (statistics in float32) and moves the running statistics by momentum 0.1
@@ -31,13 +33,34 @@ Pair = Union[int, Tuple[int, int]]
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, stride: Pair = 1, padding: Pair = 1,
            dilation: Pair = 1) -> torch.Tensor:
     """NCHW conv with the module's OIHW weight (and bias, if any)."""
-    return F.conv2d(x, conv.weight, conv.bias, stride=stride, padding=padding,
-                    dilation=dilation)
+    return conv_bias(x, conv.weight, conv.bias, stride=stride, padding=padding,
+                     dilation=dilation)
+
+
+def conv_bias(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+              **kw) -> torch.Tensor:
+    """``F.conv2d(x, weight, bias, **kw)``.  Below float32 the bias is added
+    after the product is rounded to the activation dtype, as the JAX
+    package's conv then add rounds.  A library conv adds it inside its
+    float32 accumulator, which moves the bf16 probabilities 2-4x further
+    from JAX's, past the 2e-2 bound on fused_conv (pinned by
+    tests/test_torch_precision.py::test_bias_after_the_rounded_conv_is_what_holds_jax).
+    In float32 the library adds it."""
+    if x.dtype == torch.float32 or bias is None:
+        return F.conv2d(x, weight, bias, **kw)
+    return F.conv2d(x, weight, None, **kw) + bias.reshape(1, -1, 1, 1)
 
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """[B, in] x weight [out, in] + bias."""
     return x @ lin.weight.T + lin.bias
+
+
+def _rsqrt(v: torch.Tensor) -> torch.Tensor:
+    """``rsqrt(v)`` computed in float32 and rounded once to ``v``'s dtype,
+    as XLA computes a bf16 rsqrt (the CPU's bf16 ``torch.rsqrt`` rounds the
+    square root to bf16 before the reciprocal); the identity for float32."""
+    return torch.rsqrt(v.float()).to(v.dtype)
 
 
 def batch_norm(x: torch.Tensor, bn: Optional[nn.Module], train: bool = False) -> torch.Tensor:
@@ -50,10 +73,10 @@ def batch_norm(x: torch.Tensor, bn: Optional[nn.Module], train: bool = False) ->
     shape = (1, -1, 1, 1) if x.ndim == 4 else (1, -1)
     if train:
         mean, var = _batch_stats(x, bn, shape)
-        inv = torch.rsqrt(var + BN_EPS)
+        inv = _rsqrt(var + BN_EPS)
         y = (x - mean.reshape(shape)) * (bn.weight * inv).reshape(shape)
         return y + bn.bias.reshape(shape)
-    inv = torch.rsqrt(bn.running_var + BN_EPS)
+    inv = _rsqrt(bn.running_var + BN_EPS)
     y = (x - bn.running_mean.reshape(shape)) * (bn.weight * inv).reshape(shape)
     return y + bn.bias.reshape(shape)
 
@@ -88,7 +111,7 @@ def bn_eval_affine(bn: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
     :func:`batch_norm` but not bit-identical to it: only the fully
     convolutional path (models/fully_conv.py) folds, as JAX's does; the
     windows paths keep :func:`batch_norm` so that they round alike."""
-    scale = bn.weight * torch.rsqrt(bn.running_var + BN_EPS)
+    scale = bn.weight * _rsqrt(bn.running_var + BN_EPS)
     return scale, bn.bias - bn.running_mean * scale
 
 

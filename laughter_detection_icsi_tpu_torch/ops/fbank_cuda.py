@@ -1,11 +1,16 @@
-"""The fbank kernel: hand-written CUDA for Hopper, bound with ctypes.
+"""The fbank kernel: hand-written CUDA for Hopper, bound with ctypes and
+registered as a custom op.
 
-``fbank_cuda`` is the featurizer every port path calls.  On a CUDA tensor
-it launches ``csrc/fbank.cu`` (which replaces the JAX package's Pallas
-kernel ``ops/fbank_pallas.py:_fbank_kernel``; the source note there says
-what bounds it and how it is laid out); on a CPU tensor it runs the plain
+``fbank_cuda`` is the featurizer every port path calls.  It calls the
+custom op ``torch.ops.laughter_icsi_torch.fbank`` (registered when this
+module is imported), so the live pipeline and an exported graph
+(``export.py``) take one route.  On a CUDA tensor the op launches
+``csrc/fbank.cu`` (which replaces the JAX package's Pallas kernel
+``ops/fbank_pallas.py:_fbank_kernel``; the source note there says what
+bounds it and how it is laid out); on a CPU tensor it runs the plain
 version, ``ops/fbank.fbank``.  There is no fallback between the two: a CUDA
-tensor the kernel does not take raises.
+tensor the kernel does not take raises.  The op's fake gives the output's
+shape from the input's alone, which lets ``torch.export`` trace it.
 
 The kernel is built on first use with ``nvcc`` into ``build/torch_kernels/``
 at the root of the checkout, as a shared library with a plain C interface
@@ -16,6 +21,7 @@ source and flags, and loaded with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -162,14 +168,40 @@ def check_config(cfg: FeatConfig) -> None:
 def fbank_cuda(waveform: torch.Tensor, cfg: FeatConfig = FEAT) -> torch.Tensor:
     """[..., n] float32 waveform -> [..., T, num_filters] log-mel, with the
     semantics of ``ops.fbank.fbank`` (snip_edges=False padding applied here,
-    on the device, when ``cfg`` asks for it).
+    on the device, when ``cfg`` asks for it), through the custom op.
 
     A CPU tensor runs the plain version.  A CUDA tensor launches the kernel
     once for the whole batch: leading dims flatten onto the grid, so every
     batch row is computed exactly as it would be alone."""
+    return torch.ops.laughter_icsi_torch.fbank(waveform, *op_args(cfg))
+
+
+def op_args(cfg: FeatConfig) -> tuple:
+    """``cfg``'s fields in order: the op's arguments after the waveform
+    (an op takes plain ints, floats, bools and strings, not a dataclass)."""
+    return dataclasses.astuple(cfg)
+
+
+@torch.library.custom_op("laughter_icsi_torch::fbank", mutates_args=(), device_types="cpu")
+def _fbank_op(
+    waveform: torch.Tensor, num_samples: int, num_filters: int, sampling_rate: int,
+    frame_length: float, preemph_coeff: float, remove_dc_offset: bool, window_type: str,
+    dither: float, snip_edges: bool, energy_floor: float, low_freq: float, high_freq: float,
+    round_to_power_of_two: bool,
+) -> torch.Tensor:
+    """The op on a CPU tensor: the plain featurizer."""
+    cfg = FeatConfig(num_samples, num_filters, sampling_rate, frame_length, preemph_coeff,
+                     remove_dc_offset, window_type, dither, snip_edges, energy_floor,
+                     low_freq, high_freq, round_to_power_of_two)
+    return fbank_ops.fbank(waveform, cfg)
+
+
+@_fbank_op.register_kernel("cuda")
+def _fbank_launch(waveform: torch.Tensor, *fields) -> torch.Tensor:
+    """The op on a CUDA tensor: one launch of the kernel (built on first
+    use), counted in ``launches``."""
     global launches
-    if not waveform.is_cuda:
-        return fbank_ops.fbank(waveform, cfg)
+    cfg = FeatConfig(*fields)
     check_config(cfg)
     if waveform.dtype != torch.float32:
         raise TypeError(f"fbank_cuda wants float32, got {waveform.dtype}")
@@ -198,3 +230,11 @@ def fbank_cuda(waveform: torch.Tensor, cfg: FeatConfig = FEAT) -> torch.Tensor:
         raise RuntimeError(f"fbank kernel launch failed (cudaError {err})")
     launches += 1
     return out.reshape(*batch_shape, t, cfg.num_filters)
+
+
+@_fbank_op.register_fake
+def _fbank_fake(waveform: torch.Tensor, *fields) -> torch.Tensor:
+    """[..., T, num_filters] float32 from the input's shape alone."""
+    cfg = FeatConfig(*fields)
+    t = num_frames(waveform.shape[-1], cfg)
+    return waveform.new_empty((*waveform.shape[:-1], t, cfg.num_filters), dtype=torch.float32)

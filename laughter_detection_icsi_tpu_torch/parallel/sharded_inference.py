@@ -11,7 +11,9 @@ JAX package's per-channel loop), so a row equals that channel run alone.
 A meeting's channels share a length, so a meeting is one batch; ragged
 batches mask each channel's frames past its own count.  Under the packed
 codec a bucket batch goes up as one [C, wire_len] upload of bit-packed
-rows, each decoded on the device (``LaughterPipeline._upload``).
+rows, each decoded on the device (``LaughterPipeline._upload``).  In
+bfloat16 the batch runs on the pipeline's bf16 copy of the model, each row
+cast at the model boundary as a single channel's bucket is.
 
 A mesh over several processes (``torch.distributed``) is ROADMAP item 7;
 building a pipeline inside a process group of more than one rank raises.
@@ -35,7 +37,7 @@ from laughter_detection_icsi_tpu_torch.inference import (
     classify_bucket,
     fused_conv_probs,
     int16_transfer_eligible,
-    strict_fp32,
+    precision_scope,
     track_wave_len,
 )
 from laughter_detection_icsi_tpu_torch.ops.fbank_cuda import fbank_cuda
@@ -103,7 +105,8 @@ class ShardedPipeline(LaughterPipeline):
             for r, p in enumerate(padded_list):
                 batch[r, : len(p)] = p
             probs = fused_conv_probs(
-                self.model, batch, ts, self.feat_cfg, self.settings.window, self.device
+                self.model, batch, ts, self.feat_cfg, self.settings.window, self.device,
+                self.settings.precision,
             )
             # Slice to [C, t_max]: the masked tail carries a fully-conv
             # bias-leak constant (~0.48 at init scale), not 0, and a device
@@ -144,7 +147,7 @@ class ShardedPipeline(LaughterPipeline):
         classified as the single-channel pipeline classifies its bucket
         (``classify_bucket``, at the same chunk), so a row equals that
         channel run alone, and the activations live are one channel's."""
-        with torch.inference_mode(), strict_fp32():
+        with torch.inference_mode(), precision_scope(self.settings.precision):
             feats = fbank_cuda(self._upload(batch), host_prep.snip_cfg(self.feat_cfg))
             return torch.stack([
                 classify_bucket(self.model, f, int(v), self.settings, self.shared_stem)

@@ -36,8 +36,19 @@ resident on the device (``data.ResidentLadDataset``): its
 single steps.  The K steps run in order from the host; a CUDA graph of
 them is ROADMAP item 11.
 
-Not ported (they raise, naming their ROADMAP item): bf16 compute (item 6),
-multi-host preemption votes (item 7).
+``Trainer(compute_dtype='bfloat16')`` is JAX's mixed-precision recipe (its
+``build_step_fns`` ``apply_model`` boundary): the parameters are cast to
+bf16 inside the autograd graph from the float32 masters, so gradients
+arrive in float32 on the masters; the input is cast after ``_prep`` and
+the probabilities come back as float32.  In train mode the BatchNorm
+buffers stay float32 and move in place (statistics reduced in float32,
+``models/layers.py``); in eval mode they are cast too.  The loss, metrics,
+gradients, Adam moments and checkpoints stay float32.  Not
+``torch.autocast``: it keeps BatchNorm, pooling and reductions in float32
+and casts op by op, which is not the JAX package's rounding chain.
+
+Not ported (they raise, naming their ROADMAP item): multi-host preemption
+votes (item 7).
 """
 
 from __future__ import annotations
@@ -55,7 +66,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from laughter_detection_icsi_tpu_torch.inference import _not_ported, resolve_device, strict_fp32
+from laughter_detection_icsi_tpu_torch.inference import _not_ported, precision_scope, resolve_device
 from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
 from laughter_detection_icsi_tpu_torch.train.optim import Adam, AdamState
 from laughter_detection_icsi_tpu_torch.utils.profiling import annotate
@@ -122,7 +133,8 @@ class Trainer:
     #: 'bfloat16' rounds the feature batches to bf16 on the host (half the
     #: upload bytes); they are float32 again on the device.
     transfer_dtype: Optional[str] = None
-    #: 'bfloat16' compute with float32 masters is ROADMAP item 6.
+    #: 'bfloat16' runs the forward and backward in bf16 with float32
+    #: masters (see the module docstring).
     compute_dtype: Optional[str] = None
     device: Union[None, str, torch.device] = None
 
@@ -131,8 +143,6 @@ class Trainer:
             if getattr(self, name) not in (None, "float32", "bfloat16"):
                 raise ValueError(f"unknown {name} {getattr(self, name)!r}; "
                                  "use 'bfloat16' or 'float32'/None")
-        if self.compute_dtype == "bfloat16":
-            raise _not_ported("compute_dtype='bfloat16' (bf16 training)", 6)
         if self.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {self.grad_accum}")
         self.device = resolve_device(self.device)
@@ -172,6 +182,28 @@ class Trainer:
             labels = torch.from_numpy(np.asarray(labels, dtype=np.float32))
         return x, labels.to(self.device).float()
 
+    @property
+    def precision(self) -> str:
+        return self.compute_dtype or "float32"
+
+    def _forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """The model behind the precision boundary: float32 in, float32
+        out, bf16 strictly inside when ``compute_dtype='bfloat16'`` (JAX
+        ``apply_model``).  The casts of the parameters are part of the
+        autograd graph, so their gradients reach the float32 masters."""
+        if self.precision == "float32":
+            return self.model(x, generator=generator)
+        dtype = torch.bfloat16
+        cast = {k: p.to(dtype) for k, p in self.model.named_parameters()}
+        if not self.model.training:
+            # Eval mode moves no statistic: the buffers are cast as well,
+            # as the inference pipeline's bf16 copy has them.
+            cast.update({k: b.to(dtype) for k, b in self.model.named_buffers()
+                         if b.is_floating_point()})
+        probs = torch.func.functional_call(self.model, cast, (x.to(dtype),),
+                                           {"generator": generator})
+        return probs.float()
+
     def loss_and_grads(self, x: torch.Tensor, y: torch.Tensor,
                        generator: Optional[torch.Generator] = None):
         """Train-mode forward (BatchNorm buffers move) and backward on
@@ -180,9 +212,9 @@ class Trainer:
         profiler trace."""
         self.model.train()
         names, params = zip(*self.model.named_parameters())
-        with strict_fp32():
+        with precision_scope(self.precision):
             with annotate("train/forward"):
-                probs = self.model(x, generator=generator)
+                probs = self._forward(x, generator)
                 loss = bce_loss(probs, y)
             with annotate("train/backward"):
                 grads = torch.autograd.grad(loss, params)
@@ -325,8 +357,8 @@ class Trainer:
         """Eval-mode metrics and loss of one batch, as device scalars."""
         x, y = self._prep(batch)
         self.model.eval()
-        with torch.no_grad(), strict_fp32():
-            probs = self.model(x)
+        with torch.no_grad(), precision_scope(self.precision):
+            probs = self._forward(x)
         metrics = batch_metrics(probs, y)
         metrics["loss"] = bce_loss(probs, y)
         return metrics

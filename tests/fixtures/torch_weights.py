@@ -81,3 +81,41 @@ def few_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(before)
+
+
+def _nest(flat: dict) -> dict:
+    """Dotted keys -> the JAX package's nested tree (jnp leaves)."""
+    out: dict = {}
+    for key, val in flat.items():
+        node = out
+        *parents, leaf = key.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = jnp.asarray(val)
+    return out
+
+
+def calibrated_models(arch: str, windows: torch.Tensor, seed: int = 0,
+                      head_gain: float = 1.0, **kw):
+    """``both_models`` with the BatchNorm running statistics of ``windows``
+    ([B, 1, window, F] float32): one train-mode forward of the port's model
+    at momentum 1 sets each BatchNorm's statistics to its inputs' own, as a
+    trained checkpoint's are.  Random weights with random statistics grow
+    the activations through the stack (to ~70 at the last stage of the
+    narrow ResNetBigger), where a bf16 rounding moves a probability several
+    times more than it does in a checkpoint."""
+    from laughter_detection_icsi_tpu_torch.models import layers
+
+    jmodel, params, _, tmodel = both_models(arch, seed, head_gain, **kw)
+    momentum, layers.BN_MOMENTUM = layers.BN_MOMENTUM, 1.0
+    try:
+        tmodel.train()
+        with torch.no_grad():
+            tmodel(windows)
+    finally:
+        layers.BN_MOMENTUM = momentum
+        tmodel.eval()
+    state = {k: v.numpy().astype(np.int32) if k.endswith("num_batches_tracked") else v.numpy()
+             for k, v in tmodel.state_dict().items()
+             if k.rsplit(".", 1)[-1] in ("running_mean", "running_var", "num_batches_tracked")}
+    return jmodel, params, _nest(state), tmodel

@@ -295,3 +295,67 @@ def test_resident_gather_on_the_card(card, tmp_path, transfer_dtype):
     assert torch.equal(x.cpu(), want)
     assert torch.equal(lens.cpu(), torch.from_numpy(host["input_lens"]))
     assert torch.equal(labels.cpu(), torch.from_numpy(host["is_laugh"]))
+
+
+@pytest.mark.cuda
+def test_custom_op_on_the_card_and_its_fake(card):
+    """``torch.ops.laughter_icsi_torch.fbank`` launches the kernel on a CUDA
+    tensor (within the feature tolerance of the plain version), and its
+    fake gives the real output's shape and dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    cfg = host_prep.snip_cfg(FEAT)
+    x = torch.from_numpy(_wave((2, 48_777), seed=10)).to(card)
+    before = fbank_cuda.launches
+    with inference.strict_fp32():
+        got = torch.ops.laughter_icsi_torch.fbank(x, *fbank_cuda.op_args(cfg))
+        want = tfb.fbank(x, cfg)
+    assert fbank_cuda.launches - before == 1
+    torch.testing.assert_close(got, want, **TOL)
+    with FakeTensorMode() as mode:
+        fake = torch.ops.laughter_icsi_torch.fbank(mode.from_tensor(x), *fbank_cuda.op_args(cfg))
+    assert fake.shape == got.shape and fake.dtype == got.dtype == torch.float32
+    torch.library.opcheck(torch.ops.laughter_icsi_torch.fbank.default,
+                          (x, *fbank_cuda.op_args(cfg)))
+
+
+@pytest.mark.cuda
+def test_bf16_pipeline_on_the_card(card):
+    """A bf16 pipeline on the card: one launch a bucket, within 0.05 of the
+    float32 pipeline and within 2e-2 of the bf16 pipeline on the CPU."""
+    model = _small_model()
+    wave = (_wave(16000 * 6 + 777, seed=11) * 32767 / 4).astype(np.int16)
+    run = {}
+    for prec, dev in (("bfloat16", card), ("float32", card), ("bfloat16", "cpu")):
+        settings = inference.InferenceSettings(chunk=128, bucket_frames=256, precision=prec)
+        before = fbank_cuda.launches
+        run[prec, str(dev)] = inference.LaughterPipeline(
+            model, settings=settings, device=dev).probs_for_waveform(wave)
+        if dev == card:
+            assert fbank_cuda.launches - before == 3
+    bf = run["bfloat16", "cuda"]
+    assert bf.dtype == np.float32 and np.isfinite(bf).all()
+    np.testing.assert_allclose(bf, run["float32", "cuda"], rtol=0, atol=0.05)
+    np.testing.assert_allclose(bf, run["bfloat16", "cpu"], rtol=0, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_e2e_artifact_equals_the_live_pipeline_on_the_card(card, tmp_path):
+    """The e2e artifact exported on the card launches the kernel once a
+    bucket and gives the live pipeline's probabilities (the same ops at the
+    same shapes: equal, held within 1e-6 in case the program's graph runs
+    an op by another kernel)."""
+    from laughter_detection_icsi_tpu_torch import export
+
+    pipe = inference.LaughterPipeline(
+        _small_model(), settings=inference.InferenceSettings(chunk=128, bucket_frames=256))
+    path = str(tmp_path / "e2e.pt2")
+    export.save(export.export_bucket_pipeline(pipe)[0], path)
+    art = export.load(path)
+    wave = (_wave(16000 * 6 + 777, seed=12) * 32767 / 4).astype(np.int16)
+    before = fbank_cuda.launches
+    got = torch.cat([art.call(buf, valid)[:n] for buf, valid, n in
+                     host_prep.bucket_inputs(wave, settings=pipe.settings)])
+    assert fbank_cuda.launches - before == 3 and got.is_cuda
+    np.testing.assert_allclose(got.cpu().numpy(), pipe.probs_for_waveform(wave), rtol=0,
+                               atol=1e-6)

@@ -19,8 +19,10 @@ for name in names:
     importlib.import_module(name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_probe")  # defines, runs nothing
 from laughter_detection_icsi_tpu_torch.cli import (
-    analyse, compute_features, create_data_df, segment_laughter, serve, sweep, train)
-for cli in (segment_laughter, serve, sweep, analyse, create_data_df, compute_features, train):
+    analyse, compute_features, convert_checkpoint, create_data_df, export_model,
+    segment_laughter, serve, sweep, train)
+for cli in (segment_laughter, serve, sweep, analyse, create_data_df, compute_features, train,
+            export_model, convert_checkpoint):
     try:
         cli.main(["--help"])
     except SystemExit as e:
@@ -46,15 +48,18 @@ def test_port_never_imports_jax():
     names = re.search(r"NAMES (.*)", out.stdout).group(1).split()
     for mod in ("runtime.native", "train.checkpoint", "train.loop", "train.optim",
                 "data.dataset", "data.feature_cache", "data.sampler", "cli.create_data_df",
-                "cli.compute_features", "cli.train"):
+                "cli.compute_features", "cli.train", "export", "cli.export_model",
+                "cli.convert_checkpoint"):
         assert f"laughter_detection_icsi_tpu_torch.{mod}" in names, mod
     # Every CLI's --help ran: segment_laughter's, serve's, sweep's, analyse's,
-    # create_data_df's, compute_features's, train's.
+    # create_data_df's, compute_features's, train's, export_model's,
+    # convert_checkpoint's.
     assert "--input_audio_file" in out.stdout and "--save_probs" in out.stdout
     assert "--transfer_codec" in out.stdout and "--min_length_sweep" in out.stdout
     assert "--num_non_laugh_samples" in out.stdout and "--splits" in out.stdout
     assert "--device_cache" in out.stdout and "--steps_per_dispatch" in out.stdout
     assert "--device" in out.stdout
+    assert "--wave_dtype" in out.stdout and ".ckpt.npz or .pth.tar" in out.stdout
 
 
 _IMPORT = re.compile(
@@ -70,7 +75,8 @@ def test_sources_name_no_jax_import():
     for sub in ("runtime", "train", "data", "cli"):
         assert any(f.parent == PORT / sub for f in files), sub
     for name in ("data/dataset.py", "data/feature_cache.py", "data/sampler.py",
-                 "cli/create_data_df.py", "cli/compute_features.py", "cli/train.py"):
+                 "cli/create_data_df.py", "cli/compute_features.py", "cli/train.py",
+                 "export.py", "cli/export_model.py", "cli/convert_checkpoint.py"):
         assert PORT / name in files, name
     offenders = [str(f.relative_to(REPO)) for f in files if _IMPORT.search(f.read_text())]
     assert offenders == []

@@ -114,8 +114,11 @@ def test_input_guards(models, tmp_path):
 
 
 def test_unported_features_are_refused(models, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tinf.InferenceSettings(precision="bfloat16")
+    # bf16 is ported (tests/test_torch_precision.py): it constructs and runs.
+    bf16 = tinf.InferenceSettings(chunk=128, bucket_frames=256, precision="bfloat16")
+    probs = tinf.LaughterPipeline(models[3], settings=bf16, device="cpu").probs_for_waveform(
+        _wave(16000, "int16"))
+    assert probs.shape == (100,) and probs.dtype == np.float32
     for codec in ("packed", "auto"):  # ported: they construct
         assert tinf.InferenceSettings(transfer_codec=codec).transfer_codec == codec
     from laughter_detection_icsi_tpu_torch.parallel import sharded_inference as tsi
@@ -135,7 +138,8 @@ def test_device_defaults(models, monkeypatch):
     cpu = tinf.settings_from_flags(device="cpu")
     card = tinf.settings_from_flags()
     assert (cpu.chunk, cpu.bucket_frames, cpu.precision) == (1024, 1024, "float32")
-    assert (card.chunk, card.bucket_frames, card.precision) == (6144, 6144, "float32")
+    # bf16 on the card, as the JAX package's default on an accelerator.
+    assert (card.chunk, card.bucket_frames, card.precision) == (6144, 6144, "bfloat16")
     # Same field names and defaults as the JAX settings, less the kernel
     # switch (the port picks its featurizer by the tensor's device).
     jfields = {f.name: f.default for f in dataclasses.fields(jinf.InferenceSettings)}

@@ -297,8 +297,10 @@ def test_transfer_dtype_bfloat16_rounds_inputs_on_host(jax_side):
 
 def test_unported_options_raise(jax_side, tmp_path):
     m = zoo.build("ResNetBigger", **ARCH)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        Trainer(m, device="cpu", compute_dtype="bfloat16")
+    # bf16 training is ported (tests/test_torch_precision.py): it constructs.
+    assert Trainer(m, device="cpu", compute_dtype="bfloat16").precision == "bfloat16"
+    with pytest.raises(ValueError, match="unknown compute_dtype"):
+        Trainer(m, device="cpu", compute_dtype="half")
     with pytest.raises(ValueError, match="unknown transfer_dtype"):
         Trainer(m, device="cpu", transfer_dtype="bf16")
     t = Trainer(m, device="cpu")

@@ -305,11 +305,26 @@ def test_cli_checkpoint_reads_in_the_segment_cli(corpus, tmp_path):
 
 @pytest.mark.parametrize("flags,item", [(["--data_parallel"], "item 7"),
                                         (["--distributed"], "item 7"),
-                                        (["--num_processes", "2"], "item 7"),
-                                        (["--precision", "bfloat16"], "item 6")])
+                                        (["--num_processes", "2"], "item 7")])
 def test_cli_refuses_what_is_not_ported(corpus, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         train.main(train_argv(corpus, "refused", *flags))
+
+
+def test_cli_trains_in_bfloat16(corpus):
+    """``--precision bfloat16`` reaches the Trainer: the checkpoint holds
+    float32 weights, buffers and Adam moments (the masters), which differ
+    from the float32 run's from the same seed and batches."""
+    for name, flags in (("bf16", ["--precision", "bfloat16"]), ("f32", [])):
+        rc, out = run(train.main, train_argv(corpus, name, "--device_cache", "on", *flags))
+        assert rc == 0 and "epoch 1 done" in out, name
+    got, want = state(corpus, "bf16"), state(corpus, "f32")
+    assert got["global_step"] == want["global_step"] == 6
+    for k, v in got["state_dict"].items():
+        assert v.dtype == (torch.int64 if k.endswith("num_batches_tracked") else torch.float32), k
+        assert bool(torch.isfinite(v.float()).all()), k
+    assert all(m.dtype == torch.float32 for m in got["opt_state"].mu.values())
+    assert any(not torch.equal(v, want["state_dict"][k]) for k, v in got["state_dict"].items())
 
 
 def test_cli_guards(corpus, tmp_path):
