@@ -149,12 +149,39 @@ Phases (any failure exits non-zero and prints no result):
    ``LaughterPipeline.probs_for_waveform``, its time a bucket beside the
    live pipeline's; ``cli/convert_checkpoint`` .ckpt.npz -> .pth.tar ->
    .ckpt.npz with equal tensors;
-14. the card, one JSON line of the kernels (the fbank kernel at the main
+14. multi-process — full-width ``resnet_base`` over ``torch.distributed``,
+   every group joined through a file under build/chip_smoke, its processes
+   (``chip_smoke.py --worker``) killed after 300 s: (a) one process in an
+   NCCL group of one: ``DataParallelTrainer``'s step at B = 64 equals
+   ``Trainer``'s (1e-6), both steps' rates between CUDA events, one NCCL
+   all_reduce of the flattened gradients; (b) two processes sharing the
+   card over Gloo, global B = 64 of phase 10's features, dropout 0.5: three
+   steps, each from the two-process state, against one process's step
+   (loss 1e-5; gradients within 1e-4 of max(1, the leaf's max |g|) of
+   float64 truth, or no further than 1.5x one process's float32 step, which
+   on these features is ~1e-3 from truth; BN running statistics 1e-6; the
+   parameters 1e-6 from one process's Adam on the two-process gradients
+   from the same state); the sharded
+   resident split's gather step equal to the streamed local-rows step
+   (1e-6); the step's, the Gloo all_reduce's, the gather's and a vote's
+   times; SIGTERM to rank 1 mid-epoch stops both at the next vote, and the
+   resume through ``sync_resume`` (rank 1 without a checkpoint) ends where
+   the uninterrupted epoch ends (1e-6); two processes on one card over
+   NCCL refuse, naming ``--cpu_collectives gloo``; (c) ``cli/sweep`` of
+   phase 8's Bmr021 (4 x 600 s) on two processes: TextGrids byte-equal
+   and analyse rows equal to one process's, each rank's fbank launches
+   those of its 2 channels' bucket batches plus a warm-up, audio-s per
+   wall-s beside one process's; (d) ``cli/train --data_parallel
+   --device_cache on`` on two processes over a one-batch epoch (64 rows of
+   phase 10's tables; the coordinator featurizes into a fresh cache first,
+   rank 1 after the barrier): its checkpoint took one process's step (the
+   rule of (b), from the checkpoints' Adam moments);
+15. the card, one JSON line of the kernels (the fbank kernel at the main
    path's bucket; ``launches`` counted on phase 8's sweep, the launches of
-   every path, the bf16 paths' and the e2e artifact's included, beside
-   them), then the result line.
+   every path, the bf16 paths', the e2e artifact's and each rank's of
+   phase 14 included, beside them), then the result line.
 
-Phases 4-10 compare float32 numbers and pass ``precision='float32'`` (or
+Phases 4-10 and 14 compare float32 numbers and pass ``precision='float32'`` (or
 ``--precision float32``) explicitly: the card's default is bf16.
 
 The script imports neither JAX nor the JAX package.
@@ -2349,6 +2376,554 @@ def phase_export(card, work: Path, ctx: dict) -> int:
     return res["launches"]
 
 
+#: Phase 14: the global batch of the data-parallel steps, the steps held
+#: one by one against one process, the steps of the SIGTERM epoch, and the
+#: seconds after which a spawned process group is killed.
+MP_BATCH = 64
+MP_STEPS = 3
+MP_EPOCH = 8
+RANK_TIMEOUT = 300
+MP_EPOCH_SEED, MP_SEED = 5, 11  # the batch order's seed; the dropout's
+
+
+def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of ``fn`` over ``iters`` calls between two CUDA events
+    (the host's gaps included: a step that waits on the host, as a Gloo
+    collective does, cannot be queued ahead of the device)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def spawn_ranks(argv_of, n: int = 2, timeout: float = RANK_TIMEOUT):
+    """``n`` processes, the command of rank r ``argv_of(r)``, run from the
+    checkout's root; [(rc, stdout, stderr)] by rank.  All are killed when
+    one outlives ``timeout`` (which then fails the phase)."""
+    procs = [subprocess.Popen(argv_of(r), cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(n)]
+    logs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            logs.append((p.returncode, out, err))
+    except subprocess.TimeoutExpired:
+        raise PhaseError(f"a process of the group outlived {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return logs
+
+
+def worker_argv(task: str, spec: Path):
+    return lambda r: [sys.executable, str(REPO / "chip_smoke.py"), "--worker", task, str(spec), str(r)]
+
+
+def check_ranks(logs, what: str) -> None:
+    for r, (rc, out, err) in enumerate(logs):
+        check(rc == 0, f"{what}: rank {r} exited {rc}:\n{out[-1500:]}\n{err[-3000:]}")
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def grad_err(got: dict, truth: dict) -> float:
+    """The largest distance of a gradient from float64 truth, as a share
+    of max(1, the leaf's max |truth|) (phase 9's scale: full-width
+    gradients reach ~1e2)."""
+    return max((got[k].double() - t).abs().max().item() / max(1.0, t.abs().max().item())
+               for k, t in truth.items())
+
+
+def grads_f64(model, x, y, generator) -> dict:
+    """Float64 truth of a train-mode step's gradients: ``model`` (its
+    state as the step starts, dropout drawn from ``generator``) in
+    float64 on the batch's float32 values."""
+    import torch
+    import torch.nn.functional as F
+
+    m = model.double().train()
+    names, params = zip(*m.named_parameters())
+    loss = F.binary_cross_entropy(m(x.double(), generator=generator), y.double())
+    return dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def check_grads(two: dict, one: dict, truth: dict, what: str) -> tuple:
+    """The two-process gradients are within 1e-4 of float64 truth, or no
+    further from it than 1.5x the one-process float32 step is (the rule of
+    phase 3's tone: at full width on phase 10's features a float32 step's
+    gradients are ~1e-3 of max |g| from truth whichever way it sums, and
+    two float32 steps are no nearer each other).  Returns both errors."""
+    e2, e1 = grad_err(two, truth), grad_err(one, truth)
+    check(e2 <= max(1e-4, 1.5 * e1),
+          f"{what}: gradients {e2:.3e} from float64 truth, one process's {e1:.3e} "
+          f"(as a share of max(1, max |g|); limit max(1e-4, 1.5x one process's))")
+    return e2, e1
+
+
+def same_step(two: dict, one: dict, start: dict, truth: dict, what: str) -> dict:
+    """Checkpoint ``two`` (two processes) took the step that ``one`` (one
+    process) took from the parameters ``start``, read from the
+    checkpoints' Adam state (the first moment over 0.1 is the clipped
+    gradient): BatchNorm's running statistics within 1e-6, the gradients by
+    :func:`check_grads` against ``truth`` clipped as ``one``'s were, and
+    the parameters within 1e-6 of Adam applied to the checkpoint's own
+    gradients.  Returns the largest differences."""
+    from laughter_detection_icsi_tpu_torch.train import Adam
+    from laughter_detection_icsi_tpu_torch.train.optim import global_norm
+
+    sa, sb = two["state_dict"], one["state_dict"]
+    check(sa.keys() == sb.keys(), f"{what}: other tensors")
+    bn = max((sa[n] - sb[n]).abs().max().item() for n in sa
+             if n.endswith(("running_mean", "running_var")))
+    adam = Adam(max_grad_norm=None)  # the moment holds the clipped gradient
+    g_a = {k: m / (1 - adam.b1) for k, m in two["opt_state"].mu.items()}
+    g_b = {k: m / (1 - adam.b1) for k, m in one["opt_state"].mu.items()}
+    scale = min(1.0, 1.0 / (float(global_norm(truth)) + 1e-6))
+    grad, grad_one = check_grads(g_a, g_b, {k: t * scale for k, t in truth.items()}, what)
+    redo = {k: v.clone() for k, v in start.items()}
+    adam.update(g_a, adam.init(redo), redo)
+    own = max((sa[k] - redo[k]).abs().max().item() for k in g_a)
+    check(bn <= 1e-6 and own <= 1e-6,
+          f"{what}: BN stats {bn:.3e} (1e-6), parameters {own:.3e} from Adam on their own "
+          f"gradients (1e-6)")
+    return dict(bn=bn, grad=grad, grad_one=grad_one, own=own)
+
+
+def phase_multiprocess(card, work: Path, ctx: dict) -> dict:
+    """Multi-process (see the module docstring, phase 14); returns each
+    rank's fbank launches in the two-process sweep and training."""
+    import contextlib
+    import datetime
+    import io
+    import itertools
+
+    import torch
+    import torch.distributed as dist
+
+    from laughter_detection_icsi_tpu_torch import host_prep
+    from laughter_detection_icsi_tpu_torch.cli import sweep as sweep_cli
+    from laughter_detection_icsi_tpu_torch.cli import train as train_cli
+    from laughter_detection_icsi_tpu_torch.config import MODEL_MAP
+    from laughter_detection_icsi_tpu_torch.data import FeatureCache, LadDataset, audio, load_split_df
+    from laughter_detection_icsi_tpu_torch.eval import analyse as an
+    from laughter_detection_icsi_tpu_torch.models import zoo
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda
+    from laughter_detection_icsi_tpu_torch.parallel import DataParallelTrainer, distributed
+    from laughter_detection_icsi_tpu_torch.train import AdamState, Trainer
+    from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
+
+    preset = MODEL_MAP["resnet_base"]
+    root, dfs, feats, adir = ctx["train_data"]
+    tdir = ctx["corpus"][0]
+    mp = work / "multiprocess"
+    mp.mkdir()
+    rows = load_split_df(str(dfs), "train")[: MP_EPOCH * MP_BATCH]
+    check(len(rows) == MP_EPOCH * MP_BATCH, f"phase 10's train table has {len(rows)} rows")
+    (mp / "rows.json").write_text(json.dumps(rows))
+    ds = LadDataset(rows, FeatureCache(str(feats)))
+    weights = {k: v.detach().cpu() for k, v in zoo.build(
+        preset.model, dropout_rate=0.5, linear_layer_size=preset.linear_layer_size,
+        filter_sizes=preset.filter_sizes, seed=3).state_dict().items()}
+    torch.save(weights, mp / "weights.pt")
+
+    def model(dropout: float = 0.5):
+        m = zoo.build(preset.model, dropout_rate=dropout, linear_layer_size=preset.linear_layer_size,
+                      filter_sizes=preset.filter_sizes)
+        m.load_state_dict(weights, strict=True)
+        return m
+
+    def epoch_batches(n=None):
+        return itertools.islice(ds.batches(MP_BATCH, seed=MP_EPOCH_SEED, drop_remainder=True,
+                                           prefetch=0), n)
+
+    # (a) One process in an NCCL group of one on the card, cuDNN
+    # deterministic: the two trainers run the same kernels on the same
+    # values (Adam's first step would turn any rounding difference of a
+    # zero-gradient element into an lr-sized move).
+    batch = next(epoch_batches(1))
+    distributed.initialize(coordinator_address=f"file://{mp / 'store_a'}", num_processes=1,
+                           process_id=0, device=DEVICE, timeout=datetime.timedelta(seconds=120))
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    try:
+        cudnn.deterministic, cudnn.benchmark = True, False
+        backend = dist.get_backend()
+        check(backend == ("nccl" if DEVICE == "cuda" else "gloo"), f"(a): backend {backend}")
+        one, dp = Trainer(model(), device=DEVICE), DataParallelTrainer(model(), device=DEVICE)
+        oa, ma = one.train_batch(one.init(), batch, one.generator(MP_SEED, 0))
+        ob, mb = dp.train_batch(dp.init(), batch, dp.generator(MP_SEED, 0))
+        d_loss = abs(float(ma["loss"]) - float(mb["loss"]))
+        d_par = max((a - b).abs().max().item() for a, b in zip(
+            one.model.state_dict().values(), dp.model.state_dict().values()))
+        check(d_loss <= 1e-6 and d_par <= 1e-6,
+              f"(a): DataParallelTrainer vs Trainer: loss {d_loss:.3e}, state {d_par:.3e} (1e-6)")
+        rates = {}
+        for name, t, o in (("Trainer", one, oa), ("DataParallelTrainer", dp, ob)):
+            gen = t.generator(MP_SEED, 1)
+            rates[name] = 1e3 / event_ms(lambda: t.train_batch(o, batch, gen))
+        flat = torch.cat([p.detach().reshape(-1) for p in dp.model.parameters()])
+        ar_ms = cuda_ms(lambda: dist.all_reduce(flat), iters=50)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        dist.destroy_process_group()
+    print(f"(a) NCCL group of one on {card}: DataParallelTrainer's step at B = {MP_BATCH} equals "
+          f"Trainer's (loss {d_loss:.3e}, weights and buffers {d_par:.3e}; limit 1e-6); "
+          f"steps per second (CUDA events, 20 steps): Trainer {rates['Trainer']:.2f}, "
+          f"DataParallelTrainer {rates['DataParallelTrainer']:.2f}; one NCCL all_reduce of the "
+          f"flattened gradients ({flat.numel():,} float32, {4 * flat.numel():,} bytes) "
+          f"{ar_ms:.4f} ms")
+
+    # (b) Two processes sharing the card over Gloo.
+    spec = dict(device=DEVICE, store=str(mp / "store_b"), weights=str(mp / "weights.pt"),
+                rows=str(mp / "rows.json"), feats=str(feats), out=str(mp), batch=MP_BATCH,
+                steps=MP_STEPS, epoch_seed=MP_EPOCH_SEED, seed=MP_SEED)
+    (mp / "b.json").write_text(json.dumps(spec))
+    logs = spawn_ranks(worker_argv("dp", mp / "b.json"))
+    check_ranks(logs, "(b)")
+    rep = [last_json(out) for _, out, _ in logs]
+    steps = torch.load(mp / "steps.pt")
+    errs = dict(loss=0.0, grad=0.0, grad_one=0.0, bn=0.0, own=0.0)
+    for k, b in enumerate(epoch_batches(MP_STEPS)):
+        pre, post = steps[k]["pre"], steps[k]["post"]
+        t = Trainer(model(), device=DEVICE)
+        t.model.load_state_dict(pre["sd"], strict=True)
+        opt = AdamState(step=pre["step"].to(DEVICE), mu={n: v.to(DEVICE) for n, v in pre["mu"].items()},
+                        nu={n: v.to(DEVICE) for n, v in pre["nu"].items()})
+        x, y = t._prep(b)
+        truth_model = model()
+        truth_model.load_state_dict(pre["sd"], strict=True)
+        truth = grads_f64(truth_model.to(DEVICE), x, y, t.generator(MP_SEED, k))
+        loss, _, grads = t.loss_and_grads(x, y, t.generator(MP_SEED, k))
+        two_g = {n: g.to(DEVICE) for n, g in steps[k]["grads"].items()}
+        errs["loss"] = max(errs["loss"], abs(float(loss) - steps[k]["loss"]))
+        e2, e1 = check_grads(two_g, grads, truth, f"(b) step {k}")
+        errs["grad"], errs["grad_one"] = max(errs["grad"], e2), max(errs["grad_one"], e1)
+        sd = t.model.state_dict()
+        errs["bn"] = max(errs["bn"], max((sd[n] - post[n].to(DEVICE)).abs().max().item()
+                                         for n in sd if n.endswith(("running_mean", "running_var"))))
+        redo = {n: v.detach().clone() for n, v in t.params.items()}
+        t.optimizer.update(two_g, opt, redo)
+        errs["own"] = max(errs["own"], max((post[n].to(DEVICE) - p).abs().max().item()
+                                           for n, p in redo.items()))
+    check(errs["loss"] <= 1e-5 and errs["bn"] <= 1e-6 and errs["own"] <= 1e-6,
+          f"(b) two processes vs one, step by step: {errs}")
+    print(f"(b) two processes sharing {card} over Gloo, global B = {MP_BATCH} ({MP_BATCH // 2} a "
+          f"process), dropout 0.5, {MP_STEPS} steps, each from the two-process state against one "
+          f"process's step: loss {errs['loss']:.3e} (1e-5); gradients {errs['grad']:.3e} from "
+          f"float64 truth as a share of max(1, the leaf's max |g|), one process's float32 "
+          f"{errs['grad_one']:.3e} (limit max(1e-4, 1.5x one process's)); BN running statistics "
+          f"{errs['bn']:.3e} (1e-6); parameters {errs['own']:.3e} from one process's Adam on the "
+          f"two-process gradients from the same state (1e-6)")
+    r0 = rep[0]
+    check(r0["resident_vs_streamed"] <= 1e-6,
+          f"(b) the resident gather step vs the streamed step: {r0['resident_vs_streamed']:.3e}")
+    print(f"    the sharded resident split's gather step vs the streamed local-rows step: max "
+          f"|diff| {r0['resident_vs_streamed']:.3e} (limit 1e-6); each process holds "
+          f"{r0['resident_rows']} of {len(rows)} rows")
+    print(f"    on {card}: two-process step {r0['step_ms']:.3f} ms at global B = {MP_BATCH} "
+          f"(host clock, 20 steps; rank 1 {rep[1]['step_ms']:.3f} ms), {1e3 / r0['step_ms']:.2f} "
+          f"steps per second (one process, (a): {1e3 / rates['DataParallelTrainer']:.3f} ms); a "
+          f"step runs {r0['collectives']} Gloo all_reduces of {r0['collective_floats']:,} floats "
+          f"(BatchNorm's sums forward and backward, then one of the gradients and the metric "
+          f"counts), a 64-float one {r0['small_ms']:.3f} ms; one of the flattened gradients "
+          f"({r0['grad_bytes']:,} bytes, CUDA tensors staged through the host) "
+          f"{r0['allreduce_ms']:.3f} ms; the resident gather's all_reduce "
+          f"({r0['gather_bytes']:,} bytes) {r0['gather_ms']:.3f} ms; a preemption vote over the "
+          f"CPU group {r0['vote_ms']:.3f} ms")
+    check(all(r["stopped"] == [4, True] for r in rep),
+          f"(b) SIGTERM to rank 1: stops {[r['stopped'] for r in rep]}, want both at step 4")
+    logs = spawn_ranks(worker_argv("resume", mp / "b.json"))
+    check_ranks(logs, "(b) resume")
+    whole = ckpt_lib.load_checkpoint(str(mp / "whole" / "last.ckpt.npz"))
+    resumed = ckpt_lib.load_checkpoint(str(mp / "cut0" / "last.ckpt.npz"))
+    check(not (mp / "cut1" / "last.ckpt.npz").exists(), "(b): rank 1 wrote a checkpoint")
+    pairs = [(v, whole["state_dict"][k]) for k, v in resumed["state_dict"].items()]
+    pairs += [(getattr(resumed["opt_state"], m)[k], getattr(whole["opt_state"], m)[k])
+              for m in ("mu", "nu") for k in whole["opt_state"].mu]
+    d_resume = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    check(d_resume <= 1e-6 and (resumed["global_step"], resumed["epoch"]) == (MP_EPOCH, 1),
+          f"(b) interrupted + resumed vs uninterrupted: {d_resume:.3e}, counters "
+          f"{resumed['global_step']}, {resumed['epoch']}")
+    print(f"    SIGTERM to rank 1 before step 4: both stopped at the vote after step 4, rank 0 "
+          f"saved; resumed with rank 1's checkpoint dir empty (sync_resume from rank 0): the "
+          f"epoch's end state is {d_resume:.3e} from the uninterrupted run's (limit 1e-6)")
+    if DEVICE == "cuda":
+        (mp / "nccl.json").write_text(json.dumps(dict(spec, store=str(mp / "store_nccl"))))
+        logs = spawn_ranks(worker_argv("nccl", mp / "nccl.json"))
+        check_ranks(logs, "NCCL on one card")
+        print(f"    two processes on one card over NCCL refuse, each: {last_json(logs[0][1])['refused']}")
+
+    # (c) cli/sweep over phase 8's Bmr021 on two processes.
+    meeting = "Bmr021"
+    n_ch = len(ctx["corpus"][2][meeting])
+    sweep_argv = lambda out: ["--audio_dir", str(ctx["corpus"][1]), "--transcript_dir", str(tdir),
+                              "--output_dir", str(out), "--split", "all", "--meetings", meeting,
+                              "--analyse", "--model_path", ctx["ckpt"], "--device", DEVICE,
+                              "--precision", "float32"]
+    text = io.StringIO()
+    fbank_cuda.launches = 0
+    with contextlib.redirect_stdout(text):
+        rc = sweep_cli.main(sweep_argv(mp / "sweep_one"))
+    check(rc == 0, f"(c) one-process sweep returned {rc}")
+    one_launches, one_out = fbank_cuda.launches, text.getvalue()
+
+    def cli_spec(name: str, argv) -> Path:
+        path = mp / f"{name}.json"
+        path.write_text(json.dumps(dict(spec, argv=argv, module=name,
+                                        store=str(mp / f"store_{name}"))))
+        return path
+
+    logs = spawn_ranks(worker_argv("cli", cli_spec("sweep", sweep_argv(mp / "sweep_two"))))
+    check_ranks(logs, "(c) two-process sweep")
+    sweep_launches = [last_json(out)["launches"] for _, out, _ in logs]
+    n_batches = -(-max(host_prep.num_frames(audio.info(p).num_samples)
+                       for p in ctx["corpus"][2][meeting]) // ctx["pipe"].settings.bucket_frames)
+    want = 1 + n_batches
+    check(one_launches == want and sweep_launches == [want, want],
+          f"(c) fbank launches: one process {one_launches}, the two {sweep_launches}, want {want} "
+          f"each ({n_batches} bucket batches + 1 warm-up)")
+    a, b = mp / "sweep_one" / "all", mp / "sweep_two" / "all"
+    grids = sorted(p.relative_to(a) for p in a.rglob("*.TextGrid"))
+    check(grids == sorted(p.relative_to(b) for p in b.rglob("*.TextGrid")) and len(grids) == 87 * n_ch
+          and all((a / p).read_bytes() == (b / p).read_bytes() for p in grids),
+          "(c) the two-process sweep's TextGrids differ from one process's")
+    stats = [an.read_csv(str(d.parent / "all_sum_stats.csv"), an.SumStats) for d in (a, b)]
+    check(rows_equal(stats[0], stats[1]), "(c) the analyse rows differ")
+    rate = lambda out: float(re.search(r"([\d.]+) audio-s per wall-s end to end", out)[1])
+    secs = audio.info(ctx["corpus"][2][meeting][0]).duration
+    print(f"(c) cli/sweep of {meeting} ({n_ch} x {secs:.0f} s) on two processes sharing {card} "
+          f"(--cpu_collectives gloo): {len(grids)} TextGrids equal to one process's byte for "
+          f"byte, {len(stats[0])} analyse rows equal (rank 0 alone analyses); fbank launched "
+          f"{sweep_launches[0]} times on rank 0 and {sweep_launches[1]} on rank 1 ({n_batches} "
+          f"bucket batches of its 2 channels + 1 warm-up), one process {one_launches} for 4 "
+          f"channels; end to end {rate(logs[0][1]):.2f} audio-s per wall-s (rank 0's loop) "
+          f"against one process's {rate(one_out):.2f}")
+
+    # (d) cli/train --data_parallel on two processes: a one-batch epoch of
+    # phase 10's tables, the two-process run featurizing into a fresh cache.
+    cut = root / "data_dfs_mp"
+    cut.mkdir()
+    for split in ("train", "dev"):
+        lines = (dfs / f"{split}_df.csv").read_text().splitlines(keepends=True)
+        (cut / f"{split}_df.csv").write_text("".join(lines[: 1 + MP_BATCH]))
+    train_argv = lambda name, feats_dir: [
+        "--config", "resnet_base", "--checkpoint_dir", str(mp / name), "--data_root", str(root),
+        "--data_dfs_dir", str(cut), "--feats_dir", str(feats_dir), "--signals_dir", str(adir),
+        "--device", DEVICE, "--batch_size", str(MP_BATCH), "--device_cache", "on",
+        "--data_parallel", "--seed", "3"]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = train_cli.main(train_argv("train_one", feats))
+    check(rc == 0 and "data-parallel over 1 devices" in text.getvalue(),
+          f"(d) one-process train: {text.getvalue()[-500:]}")
+    logs = spawn_ranks(worker_argv("cli", cli_spec("train", train_argv("train_two", mp / "feats_two"))))
+    check_ranks(logs, "(d) two-process train")
+    train_launches = [last_json(out)["launches"] for _, out, _ in logs]
+    n_tracks = len({(r["meeting_id"], r["chan_id"]) for split in ("train", "dev")
+                    for r in load_split_df(str(cut), split)})
+    check(train_launches[0] >= n_tracks and train_launches[1] == 0,
+          f"(d) featurization launches by rank {train_launches} for {n_tracks} tracks")
+    check(f"device cache: {MP_BATCH} train windows resident" in logs[0][1]
+          and f"feeds {MP_BATCH // 2} of {MP_BATCH} rows/batch" in logs[1][1],
+          f"(d): {logs[0][1][-600:]}")
+    # Float64 truth of the CLI's one step: its batch (epoch seed --seed +
+    # epoch) and dropout (seed --seed * 1000 + epoch, global step 0).
+    t = Trainer(model(), device=DEVICE)
+    cut_ds = LadDataset(load_split_df(str(cut), "train"), FeatureCache(str(feats)))
+    x, y = t._prep(next(cut_ds.batches(MP_BATCH, seed=3, drop_remainder=True, prefetch=0)))
+    truth = {k: v.cpu() for k, v in grads_f64(model().to(DEVICE), x, y,
+                                               t.generator(3000, 0)).items()}
+    params = dict(model().named_parameters())
+    got = same_step(ckpt_lib.load_checkpoint(str(mp / "train_two" / "last.ckpt.npz")),
+                    ckpt_lib.load_checkpoint(str(mp / "train_one" / "last.ckpt.npz")),
+                    {k: v for k, v in weights.items() if k in params}, truth, "(d)")
+    print(f"(d) cli/train --data_parallel --device_cache on on two processes, a one-batch epoch "
+          f"({MP_BATCH} rows of phase 10's train table; {n_tracks} tracks featurized by rank 0 "
+          f"into a fresh cache, {train_launches[0]} fbank launches, rank 1 {train_launches[1]} "
+          f"after the barrier): its last.ckpt.npz took one process's step (read from the "
+          f"checkpoints' Adam moments): gradients {got['grad']:.3e} from float64 truth, one "
+          f"process's {got['grad_one']:.3e} (limit max(1e-4, 1.5x one process's)), BN statistics "
+          f"{got['bn']:.3e} (1e-6), parameters {got['own']:.3e} from Adam on their own gradients "
+          f"(1e-6)")
+    return dict(sweep=sweep_launches, train=train_launches)
+
+
+def worker_main(task: str, spec_path: str, rank: int) -> int:
+    """One process of a phase-14 group: ``chip_smoke.py --worker TASK
+    SPEC.json RANK``.  Tasks: ``dp`` (phase 14 (b): the recorded steps, the
+    resident and streamed steps, the timings, an uninterrupted epoch and
+    one that rank 1's SIGTERM stops), ``resume`` (that epoch resumed),
+    ``cli`` (a CLI's ``main`` on the spec's argv plus the multi-process
+    flags; prints its fbank launches) and ``nccl`` (NCCL with both
+    processes on one card must refuse)."""
+    import datetime
+    import importlib
+    import itertools
+    import signal
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from laughter_detection_icsi_tpu_torch.parallel import distributed
+
+    spec = json.loads(Path(spec_path).read_text())
+    join = dict(coordinator_address=f"file://{spec['store']}", num_processes=2, process_id=rank,
+                device=spec["device"], timeout=datetime.timedelta(seconds=120))
+    if task == "nccl":
+        try:
+            distributed.initialize(**join)
+        except RuntimeError as e:
+            if "--cpu_collectives gloo" not in str(e):
+                raise
+            print(json.dumps({"refused": str(e)}))
+            return 0
+        print("NCCL took two processes on one card")
+        return 1
+    if task == "cli":
+        from laughter_detection_icsi_tpu_torch.ops import fbank_cuda
+
+        cli = importlib.import_module(f"laughter_detection_icsi_tpu_torch.cli.{spec['module']}")
+        fbank_cuda.launches = 0
+        rc = cli.main(spec["argv"] + ["--coordinator_address", join["coordinator_address"],
+                                      "--num_processes", "2", "--process_id", str(rank),
+                                      "--cpu_collectives", "gloo"])
+        print(json.dumps({"launches": fbank_cuda.launches}))
+        return rc
+
+    from laughter_detection_icsi_tpu_torch.config import MODEL_MAP
+    from laughter_detection_icsi_tpu_torch.data import FeatureCache, LadDataset, ResidentLadDataset
+    from laughter_detection_icsi_tpu_torch.data.dataset import _epoch_slices
+    from laughter_detection_icsi_tpu_torch.models import zoo
+    from laughter_detection_icsi_tpu_torch.parallel import DataParallelTrainer
+    from laughter_detection_icsi_tpu_torch.train import TrainLoop
+
+    distributed.initialize(cpu_collectives="gloo", **join)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dev, out = spec["device"], Path(spec["out"])
+    batch, seed, epoch_seed = spec["batch"], spec["seed"], spec["epoch_seed"]
+    preset = MODEL_MAP["resnet_base"]
+    weights = torch.load(spec["weights"])
+    ds = LadDataset(json.loads(Path(spec["rows"]).read_text()), FeatureCache(spec["feats"]))
+
+    class Recording(DataParallelTrainer):
+        def _update(self, grads, opt_state):
+            self.grads = grads
+            return super()._update(grads, opt_state)
+
+    def trainer():
+        m = zoo.build(preset.model, dropout_rate=0.5, linear_layer_size=preset.linear_layer_size,
+                      filter_sizes=preset.filter_sizes)
+        m.load_state_dict(weights, strict=True)
+        return Recording(m, device=dev)
+
+    def batches(**kw):
+        return ds.batches(batch, seed=epoch_seed, drop_remainder=True, prefetch=0,
+                          local_rows=(rank, 2), **kw)
+
+    def loop_for(t, ckpt_dir):
+        return TrainLoop(trainer=t, checkpoint_dir=str(ckpt_dir), write_artifacts=rank == 0,
+                         sync_preempt=distributed.make_preemption_sync(), preempt_vote_every=2,
+                         log_frequency=0)
+
+    def host_ms(fn, iters=20):
+        """Host clock over ``iters`` calls that end in a synchronize: a
+        Gloo collective waits on the host, so the step cannot be queued
+        ahead of the device."""
+        sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        return 1e3 * (time.perf_counter() - t0) / iters
+
+    cpu = lambda tensors: {k: v.detach().cpu().clone() for k, v in tensors.items()}
+    report = {}
+    if task == "dp":
+        t, rec = trainer(), []
+        opt = t.init()
+        for k, b in enumerate(itertools.islice(batches(), spec["steps"])):
+            pre = dict(sd=cpu(t.model.state_dict()), step=opt.step.cpu(), mu=cpu(opt.mu),
+                       nu=cpu(opt.nu))
+            opt, m = t.train_batch(opt, b, t.generator(seed, k))
+            rec.append(dict(pre=pre, grads=cpu(t.grads), loss=float(m["loss"]),
+                            post=cpu(t.model.state_dict())))
+        if rank == 0:
+            torch.save(rec, out / "steps.pt")
+        b, gen = next(batches()), t.generator(seed, 9)
+        report["step_ms"] = host_ms(lambda: t.train_batch(opt, b, gen))
+        sizes, real = [], torch.distributed.all_reduce
+        torch.distributed.all_reduce = lambda x, *a, **kw: sizes.append(x.numel()) or real(x, *a, **kw)
+        try:
+            t.train_batch(opt, b, gen)  # the collectives of one step, counted
+        finally:
+            torch.distributed.all_reduce = real
+        report["collectives"], report["collective_floats"] = len(sizes), sum(sizes)
+        small = torch.zeros(64, device=dev)
+        report["small_ms"] = host_ms(lambda: torch.distributed.all_reduce(small))
+        flat = torch.cat([g.reshape(-1) for g in t.grads.values()])
+        report["grad_bytes"] = 4 * flat.numel()
+        report["allreduce_ms"] = host_ms(lambda: torch.distributed.all_reduce(flat))
+        sync = distributed.make_preemption_sync()
+        report["vote_ms"] = host_ms(lambda: sync(False))
+
+        res = ResidentLadDataset(ds, sharding=(rank, 2), pad_rows_to=2, device=dev)
+        report["resident_rows"] = int(res.feats.shape[0])
+        idx = _epoch_slices(len(ds), batch, True, epoch_seed, True)[0]
+        report["gather_bytes"] = batch * (res.feats[0].numel() + 2) * 4
+        report["gather_ms"] = host_ms(lambda: res.gather(idx))
+        ta, tb = trainer(), trainer()
+        _, ma = ta.train_batch_resident(ta.init(), res, idx, seed, 0)
+        _, mb = tb.train_batch(tb.init(), next(batches()), tb.generator(seed, 0))
+        sa, sb = ta.model.state_dict(), tb.model.state_dict()
+        report["resident_vs_streamed"] = max(
+            [abs(float(ma["loss"]) - float(mb["loss"]))]
+            + [(sa[n].float() - sb[n].float()).abs().max().item() for n in sa])
+
+        t = trainer()
+        loop = loop_for(t, out / "whole")
+        opt, _ = loop.run_epoch(t.init(), batches(), seed=seed, verbose=False)
+        loop.save(opt)
+
+        def signalling(it):
+            for i, b in enumerate(it):
+                if rank == 1 and i == 3:
+                    os.kill(os.getpid(), signal.SIGTERM)
+                yield b
+
+        t = trainer()
+        loop = loop_for(t, out / f"cut{rank}")
+        loop.install_preemption_handler()
+        loop.run_epoch(t.init(), signalling(batches()), seed=seed, verbose=False)
+        report["stopped"] = [loop.global_step, loop.preempted]
+    elif task == "resume":
+        t = trainer()
+        loop = loop_for(t, out / f"cut{rank}")
+        opt = distributed.sync_resume(loop, loop.resume_if_possible(t.init()))
+        report["resumed_at"] = loop.global_step
+        opt, _ = loop.run_epoch(opt, batches(skip_assembly=loop.epoch_step), seed=seed,
+                                verbose=False)
+        loop.save(opt)
+    else:
+        raise ValueError(f"unknown worker task {task!r}")
+    torch.distributed.destroy_process_group()
+    print(json.dumps(report))
+    return 0
+
+
 def train_breakdown(what: str, step, trace_path: Path, steps: int = 5):
     """Profile ``steps`` train steps (torch.profiler) and print the device's
     busy share of their wall and its time by region (the Trainer's
@@ -2517,6 +3092,8 @@ def main() -> int:
         phase_bf16_train(card, work, ctx)
         header("13. export")
         artifact = phase_export(card, work, ctx)
+        header("14. multi-process")
+        multi = phase_multiprocess(card, work, ctx)
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -2529,7 +3106,9 @@ def main() -> int:
                "multichannel": batched, "sweep": swept["launches"],
                "sweep_packed": swept["packed"], "sweep_fused_conv": swept["fused"],
                "training_features": trained, "compute_features": featurized["launches"],
-               **bf16, "e2e_artifact": artifact}
+               **bf16, "e2e_artifact": artifact,
+               **{f"multiprocess_sweep_rank{r}": n for r, n in enumerate(multi["sweep"])},
+               **{f"multiprocess_train_features_rank{r}": n for r, n in enumerate(multi["train"])}}
     print(f"fbank launches per path: windows {ctx['launches']} ({ctx['n_buckets']} buckets), "
           f"fused_conv {fused} (one file), serve replay {streamed} ({ctx['n_buckets']} buckets "
           f"+ warm-up), multichannel {batched} (bucket batches of 4 channels), corpus sweep "
@@ -2537,7 +3116,10 @@ def main() -> int:
           f"training features {trained}, compute_features {featurized['launches']} (30,000-frame "
           f"buckets); bf16: windows {bf16['windows_bf16']}, fused_conv {bf16['fused_conv_bf16']}, "
           f"serve replay {bf16['serve_bf16']}, multichannel {bf16['multichannel_bf16']}, sweep "
-          f"{bf16['sweep_bf16']}; the e2e artifact {artifact} ({ctx['n_buckets']} buckets)")
+          f"{bf16['sweep_bf16']}; the e2e artifact {artifact} ({ctx['n_buckets']} buckets); "
+          f"two processes: the sweep {multi['sweep']} by rank (each its 2 channels' bucket "
+          f"batches + a warm-up), cli/train's featurization {multi['train']} by rank (rank 0 "
+          f"first, rank 1 after the barrier)")
     entry["max_abs_err"] = max(entry["max_abs_err"], swept["max_err"], featurized["max_err"])
     entry = {"name": entry.pop("name"), "route": entry.pop("route"),
              "source": entry.pop("source"), "replaces": entry.pop("replaces"),
@@ -2551,4 +3133,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:  # one process of phase 14's groups
+        sys.exit(worker_main(sys.argv[2], sys.argv[3], int(sys.argv[4])))
     sys.exit(main())

@@ -1,7 +1,7 @@
 """Corpus-scale evaluation sweep for the PyTorch port.
 
-The JAX package's ``cli/sweep.py`` on one device (``--device``, default
-``cuda``): every meeting's channels go through ``ShardedPipeline`` as one
+The JAX package's ``cli/sweep.py`` (``--device``, default ``cuda``):
+every meeting's channels go through ``ShardedPipeline`` as one
 batch (one fbank kernel launch per bucket batch), the threshold x
 min_length sweep runs on the device per channel row (only run tables come
 back), and TextGrids land in the ``<out>/<split>/<meeting>/t_<thr>/
@@ -13,8 +13,12 @@ scores the split (``eval/analyse.py``: no pandas, no lxml).  Run it as
         --output_dir out --split dev --model_path checkpoints/resnet_base \\
         --analyse [--transfer_codec packed] [--mode fused_conv]
 
-The JAX CLI's multi-host flags are not here: a mesh over several processes
-is ROADMAP item 7.
+Several processes split every meeting's channels (the JAX CLI's
+multi-host flags, ``parallel/distributed.py``): every process runs the same
+command with its own ``--process_id``; each decodes, classifies and writes
+the TextGrids of its block of channels, after the processes agree that
+they see the same audio, and ``--analyse`` runs on the coordinator once
+all have written (``--output_dir`` on storage they share).
 """
 
 from __future__ import annotations
@@ -94,11 +98,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the sweep here")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default: cuda)")
+    # Multi-process (the flags of cli/train.py): every process runs the same
+    # command; each decodes and uploads only its own channels of every
+    # meeting and writes only their TextGrids.
+    from laughter_detection_icsi_tpu_torch.parallel import distributed
+
+    distributed.add_cli_args(p)
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    from laughter_detection_icsi_tpu_torch.parallel import distributed
+
+    joined = distributed.initialize_from_args(args, parser)
 
     import numpy as np
     import torch
@@ -191,6 +205,24 @@ def main(argv: Optional[List[str]] = None) -> int:
             paths.append(path)
         resolved.append((meeting_id, chans, paths))
 
+    if distributed.is_multi_process():
+        # The processes agree on the (meeting, channel) lists and each
+        # file's header (sample count, rate, encoding): a file missing,
+        # truncated or re-encoded on one host would give that process
+        # other channel blocks and bucket counts than the others'.
+        import hashlib
+
+        digest = hashlib.sha256(selection_fingerprint(resolved).encode()).hexdigest()
+        if len(set(distributed.all_gather_object(digest))) > 1:
+            raise SystemExit(
+                "multi-host sweep: the resolved (meeting, channel) audio "
+                "lists or file headers differ across processes — every "
+                "host must see the same files under --audio_dir (a file "
+                "missing, truncated, or re-encoded on one host would "
+                "desynchronize the SPMD channel batches); sync the audio "
+                "or restrict --meetings to commonly-available ones"
+            )
+
     # Warm each distinct channel count off the clock: cuDNN picks its
     # algorithms on the first call of each shape, which would be billed to
     # the first meeting's span.
@@ -208,7 +240,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("audio decoder: numpy (the native library did not build; see the warning)")
 
     out_root = Path(args.output_dir) / args.split
-    meter = ThroughputMeter(n_chips=1)
+    meter = ThroughputMeter(n_chips=pipe.n_shards)
     total_audio_s = 0.0
     t0 = time.perf_counter()
     with trace(args.trace_dir):
@@ -225,12 +257,19 @@ def main(argv: Optional[List[str]] = None) -> int:
             rtf = meter.stop(float(np.sum(durations)))
             print(f"  {rtf:.1f}x realtime", flush=True)
             total_audio_s += float(np.sum(durations))
-            for i, (chan_id, duration) in enumerate(zip(chans, durations)):
+            # Each process postprocesses and writes its own channels (every
+            # channel in a run of one), an all-empty meeting's too.
+            if probs_dev is not None:
+                rows = pipe.local_channels(probs_dev, len(chans))
+            else:
+                rows = [(i, None) for i in pipe.local_channel_indices(len(chans))]
+            for i, row_probs in rows:
+                chan_id, duration = chans[i], durations[i]
                 # The threshold x min-length sweep of each row on the
                 # device: only run tables cross to the host.
                 t_i = ts[i]
                 fps = t_i / duration if duration > 0 else 100.0
-                row = probs_dev[i, :t_i] if probs_dev is not None else torch.zeros(0)
+                row = row_probs[:t_i] if row_probs is not None else torch.zeros(0)
                 instances = smoothing.instances_from_device_probs(
                     row, thresholds=thresholds, min_lengths=min_lengths, fps=fps,
                 )
@@ -247,11 +286,21 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
     if args.trace_dir:
         print(f"profiler trace written to {args.trace_dir}")
-    if args.analyse:
+    # Every process has written its TextGrids before the coordinator reads
+    # them.
+    distributed.barrier()
+    if args.analyse and distributed.is_coordinator():
         from laughter_detection_icsi_tpu_torch.cli.analyse import print_report
         from laughter_detection_icsi_tpu_torch.eval.analyse import analyse
 
+        if joined:
+            print("analyse on coordinator (NOTE: --output_dir must be shared "
+                  "storage for the evaluation to see every host's TextGrids)")
         print_report(analyse(str(out_root), transcript_dir=args.transcript_dir, force=True))
+    if joined:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

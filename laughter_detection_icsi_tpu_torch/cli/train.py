@@ -17,8 +17,21 @@ resumes.  The reference's torch-specific flags (--torch_device,
 --num_workers, --lhotse_dir, --include_words, --train_on_noisy_audioset)
 are parsed and ignored with a note.  ``--precision bfloat16`` trains in
 bf16 with float32 masters (``Trainer(compute_dtype='bfloat16')``).
-``--data_parallel`` and the multi-process flags (ROADMAP item 7) parse,
-then raise an error naming their item.
+
+Several processes train one model with ``--data_parallel`` and the JAX
+CLI's multi-process flags (``parallel/distributed.py``), one device each:
+every process runs the same command with its own ``--process_id``, e.g.
+on one card
+
+    python -m laughter_detection_icsi_tpu_torch.cli.train ... --data_parallel \
+        --coordinator_address 127.0.0.1:29500 --num_processes 2 \
+        --process_id 0 --cpu_collectives gloo
+
+(``--device cpu`` on the CPU; NCCL and no ``--cpu_collectives`` on one
+card a process, or ``torchrun ... --distributed``).  Each process feeds
+its block of every global batch; the coordinator featurizes first and
+alone writes checkpoints and metrics; a SIGTERM on any process stops all
+at one step boundary.
 """
 
 from __future__ import annotations
@@ -33,7 +46,6 @@ from typing import List, Optional
 
 COMPAT_FLAGS = ("torch_device", "include_words", "train_on_noisy_audioset", "num_workers",
                 "lhotse_dir")
-MULTI_PROCESS_FLAGS = ("coordinator_address", "num_processes", "process_id", "cpu_collectives")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,8 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="audio root with <meeting>/<chan>.sph "
                         "(default <data_root>/signals)")
     p.add_argument("--data_parallel", action="store_true",
-                   help="shard batches over several devices (not ported: "
-                        "ROADMAP item 7)")
+                   help="data-parallel training over the processes of the "
+                        "run (one device each; BatchNorm over the global "
+                        "batch); required with several processes")
     p.add_argument("--transfer_dtype", type=str, default=None, choices=["bfloat16"],
                    help="ship feature batches to the device as bfloat16 (half "
                         "the host->device bytes; inputs are bf16-rounded, "
@@ -91,11 +104,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "of K single steps)")
     p.add_argument("--val_batches_per_log", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported: ROADMAP item 7)")
-    for flag in MULTI_PROCESS_FLAGS:
-        p.add_argument(f"--{flag}", type=str, default=None,
-                       help="multi-process training (not ported: ROADMAP item 7)")
+    from laughter_detection_icsi_tpu_torch.parallel import distributed
+
+    distributed.add_cli_args(p)
     p.add_argument("--trace_dir", type=str, default=None,
                    help="write a torch.profiler trace of the training run here")
     p.add_argument("--device", type=str, default="cuda",
@@ -142,13 +153,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         if bs < 1:
             parser.error(f"--batch_size must be >= 1, got {bs}")
 
-    from laughter_detection_icsi_tpu_torch.inference import _not_ported, resolve_device
+    from laughter_detection_icsi_tpu_torch.inference import resolve_device
+    from laughter_detection_icsi_tpu_torch.parallel import distributed, mesh
 
-    # Refused before any featurization, which can take long.
-    if args.data_parallel:
-        raise _not_ported("--data_parallel (data-parallel training)", 7)
-    if args.distributed or any(getattr(args, f) is not None for f in MULTI_PROCESS_FLAGS):
-        raise _not_ported("multi-process training (--distributed and its flags)", 7)
+    # Join the process group first: it makes this process's card the
+    # current device.
+    joined = distributed.initialize_from_args(args, parser)
+    rank, world = mesh.world()
+    multi_process = world > 1
+    if multi_process and not args.data_parallel:
+        # Refused before featurizing, which can take long.
+        raise SystemExit(
+            "multi-host runs require --data_parallel: without it each "
+            "process would train its own divergent copy"
+        )
     device = resolve_device(args.device)
 
     from laughter_detection_icsi_tpu_torch.data import (
@@ -173,8 +191,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     cache = FeatureCache(feats_dir)
     train_df = load_split_df(data_dfs_dir, "train")
     dev_df = load_split_df(data_dfs_dir, "dev")
-    _ensure_features(cache, train_df, signals_dir, device)
-    _ensure_features(cache, dev_df, signals_dir, device)
+    # Multi-process: the coordinator featurizes first, the others after a
+    # barrier.  On shared storage they then find every track (one
+    # featurization, no concurrent manifest writes); on disks of their own
+    # they fill what is still missing.
+    if rank == 0:
+        _ensure_features(cache, train_df, signals_dir, device)
+        _ensure_features(cache, dev_df, signals_dir, device)
+    distributed.barrier()
+    if rank != 0:
+        cache = FeatureCache(feats_dir)  # re-read the coordinator's manifest
+        _ensure_features(cache, train_df, signals_dir, device)
+        _ensure_features(cache, dev_df, signals_dir, device)
     train_ds = LadDataset(train_df, cache)
     dev_ds = LadDataset(dev_df, cache)
 
@@ -182,26 +210,53 @@ def main(argv: Optional[List[str]] = None) -> int:
     # gather on the device.
     use_cache = False
     if args.device_cache != "off":
+        # Under --data_parallel each process holds its block of the rows:
+        # the budget is a device's.
         est = (ResidentLadDataset.estimated_nbytes(train_ds, args.transfer_dtype)
                + ResidentLadDataset.estimated_nbytes(dev_ds, args.transfer_dtype))
+        est //= world if args.data_parallel else 1
         on_card = device.type == "cuda"
         fits = est <= args.device_cache_budget_gb * 1e9
         use_cache = args.device_cache == "on" or (on_card and fits)
         if args.device_cache == "auto" and not use_cache and on_card:
-            print(f"device_cache auto: split needs {est / 1e9:.2f} GB > budget "
+            print(f"device_cache auto: split needs {est / 1e9:.2f} GB a device > budget "
                   f"{args.device_cache_budget_gb} GB; streaming from host")
 
     model = zoo.build(preset.model, dropout_rate=dropout,
                       linear_layer_size=preset.linear_layer_size,
                       filter_sizes=preset.filter_sizes, seed=args.seed)
-    trainer = Trainer(model=model, optimizer=Adam(), grad_accum=grad_accum,
-                      transfer_dtype=args.transfer_dtype,
-                      compute_dtype=None if args.precision == "float32" else args.precision,
-                      device=device)
+    compute_dtype = None if args.precision == "float32" else args.precision
+    local_rows = None
+    if args.data_parallel:
+        from laughter_detection_icsi_tpu_torch.parallel import DataParallelTrainer
+
+        if batch_size % world:
+            batch_size = -(-batch_size // world) * world
+            print(f"note: batch_size rounded up to {batch_size} for {world} devices")
+        if grad_accum != 1:
+            raise SystemExit("--gradient_accumulation_steps requires single-device mode")
+        trainer = DataParallelTrainer(model=model, optimizer=Adam(),
+                                      compute_dtype=compute_dtype, device=device)
+        print(f"data-parallel over {world} devices")
+        if multi_process:
+            # Each process assembles and feeds its own rows of every batch.
+            local_rows = (rank, world)
+            print(f"multi-host: process {rank} feeds {batch_size // world} of "
+                  f"{batch_size} rows/batch")
+        if args.transfer_dtype and not use_cache:
+            print("note: --transfer_dtype applies to single-device streamed "
+                  "batches and is ignored under --data_parallel (use "
+                  "--device_cache for the bandwidth win)")
+    else:
+        trainer = Trainer(model=model, optimizer=Adam(), grad_accum=grad_accum,
+                          transfer_dtype=args.transfer_dtype, compute_dtype=compute_dtype,
+                          device=device)
     if use_cache:
         t0 = time.perf_counter()
-        train_ds = ResidentLadDataset(train_ds, args.transfer_dtype, device=device)
-        dev_ds = ResidentLadDataset(dev_ds, args.transfer_dtype, device=device)
+        # Under --data_parallel each process uploads its block of the rows.
+        shard = dict(sharding=(rank, world), pad_rows_to=world) if args.data_parallel else {}
+        train_ds = ResidentLadDataset(train_ds, args.transfer_dtype, device=device, **shard)
+        dev_ds = ResidentLadDataset(dev_ds, args.transfer_dtype, device=device, **shard)
         print(f"device cache: {len(train_ds)} train windows resident on {device} "
               f"({len(dev_ds)} dev; built in {time.perf_counter() - t0:.2f} s)")
     opt_state = trainer.init()
@@ -215,26 +270,36 @@ def main(argv: Optional[List[str]] = None) -> int:
         val_batches_per_log=args.val_batches_per_log,
         # the preemption path flushes the metric rows too
         metrics_path=str(ckpt_dir / "metrics.csv"),
+        # multi-process: the coordinator is the one writer, and all stop at
+        # the same step boundary on preemption
+        write_artifacts=distributed.is_coordinator(),
+        sync_preempt=distributed.make_preemption_sync() if multi_process else None,
         steps_per_dispatch=args.steps_per_dispatch,
     )
     if args.steps_per_dispatch > 1 and not use_cache:
         print("note: --steps_per_dispatch groups device-resident batches only; this run "
               "streams from host (--device_cache off), so steps run one a call")
     opt_state = loop.resume_if_possible(opt_state)
+    # Processes without a checkpoint of their own (only the coordinator
+    # writes) take the coordinator's resume state.
+    opt_state = distributed.sync_resume(loop, opt_state)
     if loop.global_step:
         print(f"resumed from step {loop.global_step} (epoch {loop.epoch})")
     loop.install_preemption_handler()  # checkpoint and a clean exit on SIGTERM
 
-    with open(ckpt_dir / "train_params.csv", "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["num_train_samples", "num_dev_samples", "batch_size", "log_freq"])
-        w.writerow([len(train_ds), len(dev_ds), batch_size, preset.log_frequency])
+    if loop.write_artifacts:
+        with open(ckpt_dir / "train_params.csv", "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["num_train_samples", "num_dev_samples", "batch_size", "log_freq"])
+            w.writerow([len(train_ds), len(dev_ds), batch_size, preset.log_frequency])
 
     def val_batches(n: int):
         if use_cache:
-            it = dev_ds.index_batches(batch_size, shuffle=True, seed=loop.global_step)
+            it = dev_ds.index_batches(batch_size, shuffle=True, seed=loop.global_step,
+                                      drop_remainder=args.data_parallel)
         else:
-            it = dev_ds.batches(batch_size, shuffle=True, seed=loop.global_step)
+            it = dev_ds.batches(batch_size, shuffle=True, seed=loop.global_step,
+                                drop_remainder=args.data_parallel, local_rows=local_rows)
         out = []
         for _ in range(n):
             try:
@@ -251,12 +316,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         while loop.epoch < target_epoch:
             if use_cache:
                 epoch_batches = train_ds.index_batches(
-                    batch_size, shuffle=True, seed=args.seed + loop.epoch)
+                    batch_size, shuffle=True, seed=args.seed + loop.epoch,
+                    drop_remainder=args.data_parallel)
             else:
                 epoch_batches = train_ds.batches(
                     batch_size, shuffle=True, seed=args.seed + loop.epoch,
+                    drop_remainder=args.data_parallel,
                     # a mid-epoch resume assembles nothing for the trained batches
-                    skip_assembly=loop.epoch_step)
+                    skip_assembly=loop.epoch_step, local_rows=local_rows)
             opt_state, mean_loss = loop.run_epoch(
                 opt_state, epoch_batches, val_batches_fn=val_batches,
                 seed=args.seed * 1000 + loop.epoch)
@@ -269,6 +336,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"training finished in {time.perf_counter() - t_start:.1f}s")
     loop.flush_metrics()
     loop.save(opt_state)
+    if joined:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
 
 

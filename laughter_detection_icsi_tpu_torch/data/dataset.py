@@ -11,6 +11,12 @@ prefetch thread); :class:`ResidentLadDataset` uploads the whole split to
 the device once and gathers each batch there, so only the index vector
 crosses the link.  Both draw their batch order from ``_epoch_slices``, so
 a streamed and a resident epoch train on the same batches.
+
+Over several processes (``parallel.DataParallelTrainer``) every process
+draws the same global batch order: ``LadDataset.batches(local_rows=...)``
+assembles only this process's block of each batch, and a
+``ResidentLadDataset(sharding=...)`` holds only this process's block of
+the split's rows and gathers a batch's rows from every process.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from __future__ import annotations
 import csv
 import dataclasses
 import os
-from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Union
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,13 +33,6 @@ from laughter_detection_icsi_tpu_torch.data.feature_cache import FeatureCache
 from laughter_detection_icsi_tpu_torch.data.sampler import FLOAT_COLS
 
 Row = Mapping[str, Any]
-
-
-def _not_ported(feature: str, item: int) -> NotImplementedError:
-    # inference imports the data package: imported here, not at the top.
-    from laughter_detection_icsi_tpu_torch import inference
-
-    return inference._not_ported(feature, item)
 
 
 @dataclasses.dataclass
@@ -160,15 +159,30 @@ class LadDataset:
 
         ``skip_assembly`` = k (a mid-epoch resume): the first k batches
         were trained already, so k ``None`` placeholders stand for them
-        and nothing is read for them.  ``local_rows=(process, processes)``
-        takes one process only: several processes are ROADMAP item 7."""
+        and nothing is read for them.
+
+        ``local_rows=(process_id, num_processes)`` (multi-process training):
+        every process computes the same seeded global batch order and
+        assembles only its contiguous ``batch_size / num_processes`` rows
+        of each batch, in process order, which is how the data-parallel
+        step splits the global batch.  Requires ``drop_remainder`` and
+        ``num_processes | batch_size``."""
+        slices = _epoch_slices(len(self.df), batch_size, shuffle, seed, drop_remainder)
         if local_rows is not None:
             pid, nproc = int(local_rows[0]), int(local_rows[1])
             if not 0 <= pid < nproc:
                 raise ValueError(f"local_rows: bad process id {pid}/{nproc}")
             if nproc > 1:
-                raise _not_ported("local_rows over several processes (multi-process training)", 7)
-        slices = _epoch_slices(len(self.df), batch_size, shuffle, seed, drop_remainder)
+                if not drop_remainder:
+                    raise ValueError(
+                        "local_rows needs drop_remainder=True: a ragged tail "
+                        "batch cannot split evenly across processes")
+                if batch_size % nproc:
+                    raise ValueError(
+                        f"local_rows: batch_size {batch_size} not divisible "
+                        f"by num_processes {nproc}")
+                k = batch_size // nproc
+                slices = [s[pid * k:(pid + 1) * k] for s in slices]
         if skip_assembly:
             k = min(skip_assembly, len(slices))
             for _ in range(k):
@@ -261,6 +275,15 @@ class ResidentLadDataset:
     indices, and ``gather`` selects the rows on the device and casts them to
     float32.  The batch order is ``LadDataset.batches``'s.  No reference
     analogue: the reference re-reads its feature files in the train loop.
+
+    ``sharding=(process_id, num_processes)`` (multi-process training, over
+    the default process group) keeps only this process's block of rows
+    (``parallel.mesh.row_block``) of the split zero-padded to a multiple of
+    ``pad_rows_to`` (the process count): each process assembles and
+    uploads its own share.  Padded rows are never indexed.  A gather is
+    then a collective: every process fills the batch rows it holds into a
+    zeroed buffer, and one sum ``all_reduce`` gives every process the whole
+    batch (B x (W x F + 2) float32: 18 MB at B = 1024).
     """
 
     def __init__(
@@ -268,42 +291,65 @@ class ResidentLadDataset:
         dataset: LadDataset,
         transfer_dtype: Optional[str] = None,
         assemble_chunk: int = 8192,
-        sharding=None,
+        sharding: Optional[Tuple[int, int]] = None,
         pad_rows_to: int = 1,
         device: Union[None, str, torch.device] = None,
     ):
-        if sharding is not None or pad_rows_to != 1:
-            raise _not_ported("a resident dataset sharded over devices (sharding, pad_rows_to)", 7)
         from laughter_detection_icsi_tpu_torch.inference import resolve_device
+        from laughter_detection_icsi_tpu_torch.parallel.mesh import row_block
 
         self.dataset = dataset
         self.device = resolve_device(device)
         n = len(dataset)
+        n_pad = -(-max(n, 1) // pad_rows_to) * pad_rows_to
         w = dataset.window_frames
         nf = dataset.cache.cfg.num_filters
         dtype, _ = resolve_transfer_dtype(transfer_dtype)
-        feats = torch.zeros((n, w, nf), dtype=dtype)
-        lens = np.zeros(n, dtype=np.int32)
-        labels = np.zeros(n, dtype=np.float32)
-        for lo in range(0, n, assemble_chunk):
-            idx = np.arange(lo, min(lo + assemble_chunk, n))
+        self.world = 1 if sharding is None else int(sharding[1])
+        self.row_lo, self.row_hi = (0, n_pad) if sharding is None else row_block(
+            n_pad, int(sharding[0]), self.world)
+        rows = self.row_hi - self.row_lo
+        feats = torch.zeros((rows, w, nf), dtype=dtype)
+        lens = np.zeros(rows, dtype=np.int32)
+        labels = np.zeros(rows, dtype=np.float32)
+        for lo in range(self.row_lo, min(self.row_hi, n), assemble_chunk):
+            idx = np.arange(lo, min(lo + assemble_chunk, self.row_hi, n))
             batch = dataset._assemble(idx)
-            feats[lo : lo + len(idx)] = torch.from_numpy(batch["inputs"]).to(dtype)
-            lens[idx] = batch["input_lens"]
-            labels[idx] = batch["is_laugh"]
-        # One upload of the whole split.
+            at = slice(lo - self.row_lo, lo - self.row_lo + len(idx))
+            feats[at] = torch.from_numpy(batch["inputs"]).to(dtype)
+            lens[at] = batch["input_lens"]
+            labels[at] = batch["is_laugh"]
+        # One upload of this process's rows.
         self.feats = feats.to(self.device)
         self.lens = torch.from_numpy(lens).to(self.device)
         self.labels = torch.from_numpy(labels).to(self.device)
 
     def gather(self, idx):
         """(inputs [B, W, F] float32, lens [B], labels [B]) of rows ``idx``,
-        selected on the device."""
+        selected on the device; sharded, a collective every process of the
+        group calls with the same ``idx``."""
         if not isinstance(idx, torch.Tensor):
             idx = torch.from_numpy(np.asarray(idx, dtype=np.int64))
         idx = idx.to(self.device, torch.int64)
-        return (self.feats.index_select(0, idx).float(), self.lens.index_select(0, idx),
-                self.labels.index_select(0, idx))
+        if self.world == 1:
+            return (self.feats.index_select(0, idx).float(), self.lens.index_select(0, idx),
+                    self.labels.index_select(0, idx))
+        import torch.distributed as dist
+
+        # The rows this process holds, selected without a host sync: the
+        # others read row 0 and are zeroed.
+        own = (idx >= self.row_lo) & (idx < self.row_hi)
+        local = torch.where(own, idx - self.row_lo, 0)
+        b = idx.shape[0]
+        feats = torch.where(own[:, None, None], self.feats.index_select(0, local).float(), 0.0)
+        flat = torch.cat([
+            feats.reshape(-1),
+            torch.where(own, self.lens.index_select(0, local), 0).float(),
+            torch.where(own, self.labels.index_select(0, local), 0.0),
+        ])
+        dist.all_reduce(flat)
+        feats, lens, labels = flat.split([feats.numel(), b, b])
+        return feats.view(b, *self.feats.shape[1:]), lens.to(self.lens.dtype), labels
 
     @staticmethod
     def estimated_nbytes(dataset: LadDataset, transfer_dtype: Optional[str] = None) -> int:

@@ -31,8 +31,6 @@ the card, as JAX's on an accelerator), on a bfloat16 copy of the model:
 the masked features are cast once at the model boundary, everything inside
 runs in bf16 and the probabilities come back as float32
 (``precision_scope`` keeps cuBLAS's bf16 reductions in float32, as XLA's).
-Features of the JAX pipeline that this port does not carry yet are refused
-with an error naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -56,13 +54,6 @@ from laughter_detection_icsi_tpu_torch.data import audio as audio_io
 from laughter_detection_icsi_tpu_torch.models import fully_conv, shared_stem
 from laughter_detection_icsi_tpu_torch.ops import pcm_pack, smoothing, windows
 from laughter_detection_icsi_tpu_torch.ops.fbank_cuda import fbank_cuda
-
-
-def _not_ported(feature: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md, 'Left to port' item {item})"
-    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,14 +13,26 @@ Train mode, as JAX's: BatchNorm normalizes by the batch's biased variance
 (statistics in float32) and moves the running statistics by momentum 0.1
 with the unbiased one; dropout scales the kept values by 1 / keep.  The
 initializers draw from an explicit ``torch.Generator``.
+
+Inside :func:`data_parallel_scope` (``parallel.DataParallelTrainer``) each
+process holds one contiguous block of rows of a global batch, and both
+train-mode layers act on the global batch, as the JAX package's
+data-parallel step does (JAX ``parallel/data_parallel.py:10-13``):
+BatchNorm's statistics are sums all-reduced over the process group divided
+by the global count, and dropout draws the global batch's mask and keeps
+this process's rows, so a data-parallel step is numerically the one-process
+big-batch step.  Outside the scope nothing is reduced.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -81,12 +93,58 @@ def batch_norm(x: torch.Tensor, bn: Optional[nn.Module], train: bool = False) ->
     return y + bn.bias.reshape(shape)
 
 
+class _Shard(NamedTuple):
+    rank: int
+    world: int
+
+
+_SHARD: contextvars.ContextVar[Optional[_Shard]] = contextvars.ContextVar(
+    "data_parallel_shard", default=None)
+
+
+@contextlib.contextmanager
+def data_parallel_scope():
+    """Train-mode BatchNorm and dropout over the global batch of the
+    default process group inside the block: this process's rows are block
+    ``rank`` of ``world`` equal blocks.  Every process of the group must
+    run the same layers in the same order.  Without a process group, or in
+    a group of one, the layers are unchanged."""
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        yield
+        return
+    token = _SHARD.set(_Shard(dist.get_rank(), dist.get_world_size()))
+    try:
+        yield
+    finally:
+        _SHARD.reset(token)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the group, differentiable: the gradient of every
+    process's copy of the sum is summed back onto each input."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        out = x.clone()
+        dist.all_reduce(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad)
+        return grad
+
+
 def _batch_stats(x: torch.Tensor, bn: nn.Module, shape) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The batch's mean and biased variance per channel, in float32; the
-    running statistics move by ``BN_MOMENTUM`` toward the mean and the
-    unbiased variance, and ``num_batches_tracked`` counts one more batch."""
+    """The batch's mean and biased variance per channel, in float32 (or
+    the input's wider dtype); the running statistics move by ``BN_MOMENTUM`` toward the mean and the
+    unbiased variance, and ``num_batches_tracked`` counts one more batch.
+    Inside :func:`data_parallel_scope` the batch is the global one: the
+    sums are all-reduced and divided by the global count."""
     axes = (0, 2, 3) if x.ndim == 4 else (0,)
-    n = x.numel() // x.shape[1]
+    shard = _SHARD.get()
+    n = x.numel() // x.shape[1] * (shard.world if shard else 1)
     if n <= 1:
         # torch raises here too; a zero "unbiased" variance would quietly
         # decay running_var toward 0.
@@ -94,9 +152,13 @@ def _batch_stats(x: torch.Tensor, bn: nn.Module, shape) -> Tuple[torch.Tensor, t
             f"batch_norm(train=True) needs more than 1 value per channel, got {n} "
             "(size-1 tail batch? use drop_remainder)"
         )
-    xf = x.float()
-    mean = xf.mean(dim=axes)
-    var = ((xf - mean.reshape(shape)) ** 2).mean(dim=axes)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    if shard is None:
+        mean = xf.mean(dim=axes)
+        var = ((xf - mean.reshape(shape)) ** 2).mean(dim=axes)
+    else:
+        mean = _AllReduceSum.apply(xf.sum(dim=axes)) / n
+        var = _AllReduceSum.apply(((xf - mean.reshape(shape)) ** 2).sum(dim=axes)) / n
     with torch.no_grad():
         bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean + BN_MOMENTUM * mean)
         bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var
@@ -128,11 +190,20 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             train: bool) -> torch.Tensor:
     """Inverted dropout: in train mode each value is kept with probability
     ``1 - rate`` (a uniform draw from ``generator`` below it) and scaled by
-    ``1 / (1 - rate)``; the identity otherwise, or without a generator."""
+    ``1 / (1 - rate)``; the identity otherwise, or without a generator.
+    Inside :func:`data_parallel_scope` the draw is the global batch's and
+    this process keeps its rows of it."""
     if not train or rate == 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shard = _SHARD.get()
+    if shard is None:
+        draw = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        b = x.shape[0]
+        draw = torch.rand((b * shard.world, *x.shape[1:]), generator=generator,
+                          device=x.device)[shard.rank * b:(shard.rank + 1) * b]
+    mask = draw < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

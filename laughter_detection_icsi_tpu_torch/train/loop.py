@@ -47,8 +47,10 @@ gradients, Adam moments and checkpoints stay float32.  Not
 ``torch.autocast``: it keeps BatchNorm, pooling and reductions in float32
 and casts op by op, which is not the JAX package's rounding chain.
 
-Not ported (they raise, naming their ROADMAP item): multi-host preemption
-votes (item 7).
+Several processes train one model with ``parallel.DataParallelTrainer``
+(a :class:`Trainer` whose step reduces over a process group); the loop
+then votes on preemption (``sync_preempt``) and only the coordinator
+writes (``write_artifacts``).
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from laughter_detection_icsi_tpu_torch.inference import _not_ported, precision_scope, resolve_device
+from laughter_detection_icsi_tpu_torch.inference import precision_scope, resolve_device
 from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
 from laughter_detection_icsi_tpu_torch.train.optim import Adam, AdamState
 from laughter_detection_icsi_tpu_torch.utils.profiling import annotate
@@ -91,13 +93,25 @@ def batch_metrics(probs: torch.Tensor, targets: torch.Tensor) -> Tensors:
     train.py:203-224).  Precision is 1.0 with no positive prediction, as the
     reference's special case; recall is 1.0 with no positive target, where
     the reference's is NaN (PARITY.md #13)."""
+    return metrics_from_counts(metric_counts(probs, targets), probs.shape[0])
+
+
+def metric_counts(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """[correct, true positives, predicted positives, actual positives] at
+    0.5, as one float32 tensor: sums, so a batch split over processes adds
+    up to the whole batch's."""
     preds = (probs > 0.5).float()
     targets = targets.float()
-    tp = torch.sum(preds * targets)
-    pred_pos, actual_pos = torch.sum(preds), torch.sum(targets)
-    one = torch.ones((), device=probs.device)
+    return torch.stack([torch.sum((preds == targets).float()), torch.sum(preds * targets),
+                        torch.sum(preds), torch.sum(targets)])
+
+
+def metrics_from_counts(counts: torch.Tensor, n: int) -> Tensors:
+    """:func:`batch_metrics` from :func:`metric_counts` of ``n`` rows."""
+    correct, tp, pred_pos, actual_pos = counts.unbind()
+    one = torch.ones((), device=counts.device)
     return {
-        "acc": torch.mean((preds == targets).float()),
+        "acc": correct / n,
         "precision": torch.where(pred_pos == 0, one, tp / torch.clamp(pred_pos, min=1.0)),
         "recall": torch.where(actual_pos == 0, one, tp / torch.clamp(actual_pos, min=1.0)),
     }
@@ -212,13 +226,33 @@ class Trainer:
         profiler trace."""
         self.model.train()
         names, params = zip(*self.model.named_parameters())
-        with precision_scope(self.precision):
+        with precision_scope(self.precision), self._scope():
             with annotate("train/forward"):
                 probs = self._forward(x, generator)
-                loss = bce_loss(probs, y)
+                loss = self._loss(probs, y)
             with annotate("train/backward"):
                 grads = torch.autograd.grad(loss, params)
         return loss.detach(), probs.detach(), dict(zip(names, grads))
+
+    # The three places where a data-parallel step differs from this one
+    # (parallel.DataParallelTrainer overrides them); the step body is the
+    # same for both.
+
+    def _scope(self):
+        """The context the train-mode forward and backward run in."""
+        return contextlib.nullcontext()
+
+    def _loss(self, probs: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """The loss this process differentiates: the batch's mean BCE."""
+        return bce_loss(probs, y)
+
+    def _reduce(self, grads: Tensors, loss: torch.Tensor, probs: torch.Tensor,
+                y: torch.Tensor):
+        """(gradients, metrics) of the whole batch from this process's
+        share of it; on one device, what it computed."""
+        metrics = batch_metrics(probs, y)
+        metrics["loss"] = loss
+        return grads, metrics
 
     def _update(self, grads: Tensors, opt_state: AdamState) -> AdamState:
         with annotate("train/optimizer"):
@@ -232,11 +266,11 @@ class Trainer:
         x, y = self._prep(batch)
         if self.grad_accum == 1:
             loss, probs, grads = self.loss_and_grads(x, y, generator)
-            opt_state = self._update(grads, opt_state)
-        else:
-            loss, probs = self.grad_step(x, y, generator)
-            if self._accum_count >= self.grad_accum:
-                opt_state = self.apply_grads(opt_state)
+            grads, metrics = self._reduce(grads, loss, probs, y)
+            return self._update(grads, opt_state), metrics
+        loss, probs = self.grad_step(x, y, generator)
+        if self._accum_count >= self.grad_accum:
+            opt_state = self.apply_grads(opt_state)
         metrics = batch_metrics(probs, y)
         metrics["loss"] = loss
         return opt_state, metrics
@@ -325,8 +359,8 @@ class Trainer:
         :meth:`train_batch`'s, its dropout drawn from ``step_generator(seed,
         step)`` as the epoch loop draws a streamed step's, so streamed and
         resident epochs take the same steps.  Returns (opt_state, metrics)."""
-        x, _lens, y = resident.gather(idx)
-        return self.train_batch(opt_state, {"inputs": x, "is_laugh": y}, self.generator(seed, step))
+        return self.train_batch(opt_state, {"resident": resident, "idx": idx},
+                                self.generator(seed, step))
 
     def train_k_steps_resident(self, opt_state: AdamState, resident, idx_mat, seed: int,
                                step0: int):
@@ -359,9 +393,7 @@ class Trainer:
         self.model.eval()
         with torch.no_grad(), precision_scope(self.precision):
             probs = self._forward(x)
-        metrics = batch_metrics(probs, y)
-        metrics["loss"] = bce_loss(probs, y)
-        return metrics
+            return self._reduce({}, self._loss(probs, y), probs, y)[1]
 
     def eval_batches(self, batches: Iterable) -> Dict[str, float]:
         """Mean metrics over a set of batches (reference train.py:178-201)."""
@@ -425,10 +457,18 @@ class TrainLoop:
     #: where flush_metrics persists metric rows; set, the preemption path
     #: flushes them too.
     metrics_path: Optional[str] = None
-    #: False writes no checkpoint and no metrics (and keeps no rows).
+    #: False writes no checkpoint and no metrics (and keeps no rows):
+    #: multi-process, only the coordinator writes.
     write_artifacts: bool = True
-    #: multi-host preemption votes: ROADMAP item 7.
+    #: multi-process: called at voting step boundaries with this process's
+    #: local preemption flag; returns the disjunction over the processes, so
+    #: all stop at the same boundary (parallel.distributed.
+    #: make_preemption_sync).  None keeps the local flag.
     sync_preempt: Optional[Callable[[bool], bool]] = None
+    #: multi-process vote cadence: a vote waits for a host round trip, so
+    #: processes vote when ``global_step % preempt_vote_every == 0`` (the
+    #: step counter is the same on every process) and once at every epoch's
+    #: end, and a signal between votes waits for the next one.
     preempt_vote_every: int = 10
     #: up to K consecutive batches of one resident dataset (same size) go to
     #: one Trainer.train_k_steps_resident call; 1 = a call a step.
@@ -443,14 +483,12 @@ class TrainLoop:
     best_val_loss: float = float("inf")
     metrics_rows: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
     #: the stop decision: once True, run_epoch saves and returns at the next
-    #: step boundary.
+    #: step boundary.  Multi-process it is set only from a vote, so it is
+    #: the same on every process when run_epoch returns.
     preempted: bool = dataclasses.field(default=False, init=False)
-    #: the raw signal, set by the handler.
+    #: the raw signal, set by the handler (possibly during a vote, which it
+    #: then joins the next one of).
     _preempt_pending: bool = dataclasses.field(default=False, init=False)
-
-    def __post_init__(self):
-        if self.sync_preempt is not None or self.preempt_vote_every != 10:
-            raise _not_ported("multi-host preemption votes (sync_preempt, preempt_vote_every)", 7)
 
     def install_preemption_handler(self, signals=None) -> None:
         """Checkpoint on SIGTERM / SIGINT: the handler sets a flag; run_epoch
@@ -471,7 +509,10 @@ class TrainLoop:
                 if signum == signal_mod.SIGINT:
                     raise KeyboardInterrupt
             self._preempt_pending = True
-            self.preempted = True
+            if self.sync_preempt is None:
+                # One process: the signal is the decision.  Several leave
+                # it to the vote, so that all stop at one boundary.
+                self.preempted = True
 
         for s in signals:
             signal_mod.signal(s, _handler)
@@ -518,14 +559,17 @@ class TrainLoop:
 
     def _dispatch_group_limit(self) -> int:
         """The largest K-step group that starts at the current global_step
-        without passing a log point: a log point fires at ``global_step %
-        log_frequency == 0`` after the increment, so a group of exactly the
-        remaining distance ends on it."""
+        without passing a log point or (multi-process) a vote: both fire at
+        ``global_step % cadence == 0`` after the increment, so a group of
+        exactly the remaining distance ends on it."""
         k = self.steps_per_dispatch
         if k <= 1:
             return 1
         if self.log_frequency:
             k = min(k, self.log_frequency - (self.global_step % self.log_frequency))
+        if self.sync_preempt is not None:
+            v = max(1, self.preempt_vote_every)
+            k = min(k, v - (self.global_step % v))
         return max(k, 1)
 
     def run_epoch(self, opt_state: AdamState, train_batches: Iterable,
@@ -652,8 +696,18 @@ class TrainLoop:
                 if verbose:
                     msg = " ".join(f"{k}={v:.4f}" for k, v in row.items() if k != "global_step")
                     print(f"step {self.global_step}: {msg}", flush=True)
-            if self._preempt_pending or self.preempted:
-                self.preempted = True
+            # Multi-process, the processes agree before acting, and only at
+            # a voting boundary: one that stopped alone would leave the
+            # others waiting in the next step's collectives.
+            local_flag = self._preempt_pending or self.preempted
+            if self.sync_preempt is None:
+                act = local_flag
+            elif self.global_step % max(1, self.preempt_vote_every) == 0:
+                act = self.sync_preempt(local_flag)
+            else:
+                act = False
+            self.preempted = self.preempted or act
+            if act:
                 # Save at the step boundary and return without finishing the
                 # epoch.  A partial group's micro-batches have not touched
                 # the parameters: roll the counters, the buffers and the loss
@@ -680,6 +734,17 @@ class TrainLoop:
         opt_state = trainer.flush_pending_group(opt_state)
         self.epoch += 1
         self.epoch_step = 0
+        if self.sync_preempt is not None and self.sync_preempt(
+                self._preempt_pending or self.preempted):
+            # The epoch-end vote, unconditional (every process gets here
+            # after the same batches): a signal after the last in-epoch
+            # vote must not leave run_epoch agreed by nobody.  The epoch is
+            # complete, so the save is the next epoch's clean start.
+            self.preempted = True
+            self._save(opt_state, is_best=False)
+            self.flush_metrics()
+            if verbose:
+                print(f"preempted at epoch boundary {self.epoch}; checkpoint saved", flush=True)
         if (self.steps_per_dispatch > 1 and num_batches > 1 and max_group_n == 1
                 and not getattr(self, "_warned_degenerate_groups", False)):
             # Groups form only from consecutive markers of ONE resident

@@ -273,10 +273,22 @@ def test_prefetch_hands_an_assembly_error_to_the_consumer(corpus_cache):
 
 
 def test_local_rows_take_one_process(corpus_cache):
-    port, _ = both(corpus_cache)
+    """Each process's block of every batch, as JAX's ``local_rows``; its
+    checks."""
+    port, jax_ = both(corpus_cache)
     assert_same_batches(port.batches(8, seed=1, local_rows=(0, 1)), port.batches(8, seed=1))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        next(port.batches(8, drop_remainder=True, local_rows=(0, 2)))
+    for rows in ((0, 2), (1, 2), (2, 4)):
+        assert_same_batches(port.batches(8, seed=2, drop_remainder=True, local_rows=rows),
+                            jax_.batches(8, seed=2, drop_remainder=True, local_rows=rows))
+    whole = list(port.batches(8, seed=2, drop_remainder=True, prefetch=0))
+    halves = [list(port.batches(8, seed=2, drop_remainder=True, local_rows=(r, 2)))
+              for r in range(2)]
+    for w, a, b in zip(whole, *halves):
+        np.testing.assert_array_equal(np.concatenate([a["inputs"], b["inputs"]]), w["inputs"])
+    with pytest.raises(ValueError, match="needs drop_remainder=True"):
+        next(port.batches(8, local_rows=(0, 2)))
+    with pytest.raises(ValueError, match="not divisible by num_processes 3"):
+        next(port.batches(8, drop_remainder=True, local_rows=(0, 3)))
     with pytest.raises(ValueError, match="bad process id"):
         next(port.batches(8, local_rows=(1, 1)))
 
@@ -305,14 +317,28 @@ def test_resident_equals_streamed_and_jax(corpus_cache, transfer_dtype):
     np.testing.assert_array_equal(gathered[0].numpy(), gathered[1].numpy())
 
 
-def test_resident_refusals():
+def test_resident_refusals(corpus_cache):
+    """The transfer dtype's check; a split sharded over processes holds its
+    block of the zero-padded rows (the gather over the processes:
+    tests/test_torch_distributed.py)."""
     with pytest.raises(ValueError, match="unknown transfer_dtype"):
         tds.resolve_transfer_dtype("bf16")
     assert tds.resolve_transfer_dtype(None) == (torch.float32, 4)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tds.ResidentLadDataset(None, sharding=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tds.ResidentLadDataset(None, pad_rows_to=8)
+    port, _ = both(corpus_cache)
+    whole = tds.ResidentLadDataset(port, device="cpu")
+    n = len(whole)
+    padded = tds.ResidentLadDataset(port, pad_rows_to=64, device="cpu")
+    assert padded.feats.shape[0] == -(-n // 64) * 64 and len(padded) == n
+    assert torch.equal(padded.feats[:n], whole.feats) and not padded.feats[n:].any()
+    n_pad = -(-n // 3) * 3
+    blocks = [tds.ResidentLadDataset(port, sharding=(r, 3), pad_rows_to=3, device="cpu")
+              for r in range(3)]
+    assert [(b.row_lo, b.row_hi) for b in blocks] == [
+        (r * n_pad // 3, (r + 1) * n_pad // 3) for r in range(3)]
+    held = torch.cat([b.feats for b in blocks])
+    assert torch.equal(held[:n], whole.feats) and not held[n:].any()
+    with pytest.raises(ValueError, match="not divisible by mesh size 3"):
+        tds.ResidentLadDataset(port, sharding=(0, 3), device="cpu")
 
 
 def test_epoch_slices_are_jaxs():

@@ -1,4 +1,5 @@
-"""Import contract of the PyTorch port: it (and chip_smoke.py) imports
+"""Import contract of the PyTorch port: it (and chip_smoke.py, and the
+multi-process tests' worker, tests/fixtures/torch_dist_worker.py) imports
 neither JAX nor the JAX package, nor pandas, lxml or ml_dtypes (the card's
 machine has none of them), checked in a fresh interpreter (this test process has JAX loaded
 by conftest) and by reading the sources."""
@@ -18,6 +19,7 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 for name in names:
     importlib.import_module(name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke_probe")  # defines, runs nothing
+importlib.import_module("tests.fixtures.torch_dist_worker")  # defines, runs nothing
 from laughter_detection_icsi_tpu_torch.cli import (
     analyse, compute_features, convert_checkpoint, create_data_df, export_model,
     segment_laughter, serve, sweep, train)
@@ -49,7 +51,8 @@ def test_port_never_imports_jax():
     for mod in ("runtime.native", "train.checkpoint", "train.loop", "train.optim",
                 "data.dataset", "data.feature_cache", "data.sampler", "cli.create_data_df",
                 "cli.compute_features", "cli.train", "export", "cli.export_model",
-                "cli.convert_checkpoint"):
+                "cli.convert_checkpoint", "parallel.mesh", "parallel.distributed",
+                "parallel.data_parallel"):
         assert f"laughter_detection_icsi_tpu_torch.{mod}" in names, mod
     # Every CLI's --help ran: segment_laughter's, serve's, sweep's, analyse's,
     # create_data_df's, compute_features's, train's, export_model's,
@@ -60,6 +63,9 @@ def test_port_never_imports_jax():
     assert "--device_cache" in out.stdout and "--steps_per_dispatch" in out.stdout
     assert "--device" in out.stdout
     assert "--wave_dtype" in out.stdout and ".ckpt.npz or .pth.tar" in out.stdout
+    # sweep's and train's multi-process flags (JAX's).
+    assert out.stdout.count("--coordinator_address") >= 2
+    assert out.stdout.count("--cpu_collectives") >= 2
 
 
 _IMPORT = re.compile(
@@ -70,13 +76,15 @@ _IMPORT = re.compile(
 
 
 def test_sources_name_no_jax_import():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                          REPO / "tests" / "fixtures" / "torch_dist_worker.py"]
     assert len(files) > 27
     for sub in ("runtime", "train", "data", "cli"):
         assert any(f.parent == PORT / sub for f in files), sub
     for name in ("data/dataset.py", "data/feature_cache.py", "data/sampler.py",
                  "cli/create_data_df.py", "cli/compute_features.py", "cli/train.py",
-                 "export.py", "cli/export_model.py", "cli/convert_checkpoint.py"):
+                 "export.py", "cli/export_model.py", "cli/convert_checkpoint.py",
+                 "parallel/mesh.py", "parallel/distributed.py", "parallel/data_parallel.py"):
         assert PORT / name in files, name
     offenders = [str(f.relative_to(REPO)) for f in files if _IMPORT.search(f.read_text())]
     assert offenders == []

@@ -123,11 +123,18 @@ def test_unported_features_are_refused(models, monkeypatch):
         assert tinf.InferenceSettings(transfer_codec=codec).transfer_codec == codec
     from laughter_detection_icsi_tpu_torch.parallel import sharded_inference as tsi
 
-    # Inside a process group of two ranks: the mesh is ROADMAP item 7.
+    # Inside a process group of two ranks the pipeline holds its block of
+    # the channels, and what would hand every channel to one process
+    # raises, as JAX's (the two processes: tests/test_torch_distributed.py).
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsi.ShardedPipeline(models[3], device="cpu")
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 1)
+    pipe = tsi.ShardedPipeline(models[3], device="cpu")
+    assert pipe.local_channel_indices(3) == [2] and pipe.local_channel_indices(4) == [2, 3]
+    with pytest.raises(RuntimeError, match="multi-process mesh cannot do"):
+        pipe.probs_for_waveforms([_wave(16000, "int16")])
+    with pytest.raises(NotImplementedError, match="single-process"):
+        tsi.ShardedStreamingSession(pipe, 2)
     with pytest.raises(ValueError, match="unknown mode"):
         tinf.InferenceSettings(mode="dilated")
     with pytest.raises(ValueError, match="chunk must be >= 1"):

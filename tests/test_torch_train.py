@@ -309,10 +309,30 @@ def test_unported_options_raise(jax_side, tmp_path):
     with pytest.raises(ValueError, match="grad_accum == 1"):
         Trainer(m, device="cpu", grad_accum=2).train_k_steps_resident(None, None, [[0]], 0, 0)
     assert TrainLoop(trainer=t, checkpoint_dir=str(tmp_path), steps_per_dispatch=2)
-    for kw, item in ((dict(sync_preempt=lambda f: f), "item 7"),
-                     (dict(preempt_vote_every=5), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            TrainLoop(trainer=t, checkpoint_dir=str(tmp_path), **kw)
+    # The multi-process vote (JAX's cadence): every preempt_vote_every
+    # steps and at the epoch's end; a signal waits for the next vote.
+    votes = []
+
+    def vote(flag):
+        votes.append((loop.global_step, flag))
+        return flag
+
+    loop = TrainLoop(trainer=t, checkpoint_dir=str(tmp_path), write_artifacts=False,
+                     sync_preempt=vote, preempt_vote_every=3, log_frequency=0)
+    batches = make_batches(107, 7)
+    opt, _ = loop.run_epoch(t.init(), batches, verbose=False)
+    assert votes == [(3, False), (6, False), (7, False)] and not loop.preempted
+    votes.clear()
+    loop._preempt_pending = True  # a signal during step 8
+    opt, _ = loop.run_epoch(opt, batches, verbose=False)
+    assert votes == [(9, True)] and loop.preempted and loop.global_step == 9
+    assert int(opt.step) == 9
+    # Without a vote the signal is the decision, at once.
+    loop = TrainLoop(trainer=t, checkpoint_dir=str(tmp_path), write_artifacts=False,
+                     log_frequency=0)
+    loop._preempt_pending = True
+    opt, _ = loop.run_epoch(opt, batches, verbose=False)
+    assert loop.preempted and loop.global_step == 1
 
 
 def test_trainer_runs_on_cuda_unless_asked(monkeypatch):

@@ -303,12 +303,31 @@ def test_cli_checkpoint_reads_in_the_segment_cli(corpus, tmp_path):
     assert list((tmp_path / "out").rglob("*.TextGrid"))
 
 
-@pytest.mark.parametrize("flags,item", [(["--data_parallel"], "item 7"),
-                                        (["--distributed"], "item 7"),
-                                        (["--num_processes", "2"], "item 7")])
-def test_cli_refuses_what_is_not_ported(corpus, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(train_argv(corpus, "refused", *flags))
+@pytest.mark.parametrize("flags,error", [
+    pytest.param(["--cpu_collectives", "gloo"], "has no effect without", id="flags0-item 7"),
+    pytest.param(["--distributed"], "RANK", id="flags1-item 7"),
+    pytest.param(["--num_processes", "2"], "require --coordinator_address",
+                 id="flags2-item 7")])
+def test_cli_refuses_what_is_not_ported(corpus, flags, error, capsys, monkeypatch):
+    """JAX's checks of the multi-process flags, and a multi-process run
+    without --data_parallel, refused before any featurization (the ids are
+    these cases' from when the flags were refused as not ported)."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    if flags == ["--distributed"]:  # bare --distributed reads torchrun's environment
+        with pytest.raises(ValueError, match=error):
+            train.main(train_argv(corpus, "refused", *flags))
+    else:
+        with pytest.raises(SystemExit) as e:
+            train.main(train_argv(corpus, "refused", *flags))
+        assert e.value.code == 2 and error in capsys.readouterr().err
+    from laughter_detection_icsi_tpu_torch.parallel import distributed, mesh
+
+    monkeypatch.setattr(distributed, "initialize_from_args", lambda args, parser: True)
+    monkeypatch.setattr(mesh, "world", lambda: (0, 2))
+    with pytest.raises(SystemExit, match="multi-host runs require --data_parallel"):
+        train.main(train_argv(corpus, "refused", "--distributed"))
+    assert not (corpus / "refused" / "last.ckpt.npz").exists()
 
 
 def test_cli_trains_in_bfloat16(corpus):
