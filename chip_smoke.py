@@ -91,23 +91,28 @@ Phases (any failure exits non-zero and prints no result):
    equal to the smoothing of ``LaughterPipeline`` with those weights;
    (e) train steps per second at B = 32 and 1024 (best of 3 x 50 and 3 x
    20 steps, CUDA events), peak memory, and the device time of one step by region
-   (forward, backward, optimizer) and kind (convs, the rest);
+   (forward, backward, optimizer) and kind (convs, the rest); at B = 32
+   ``cli/train``'s cuDNN flags (deterministic, no autotuning) in turns with
+   the flags as they are, the mode's cost at the preset's batch;
 10. training from a corpus — phase 8's corpus (Bro012 in train, Bmr021
    and Bns001 in dev, Bmr013 in test) through the port's three training
-   CLIs on the card: (a) ``cli/create_data_df`` in structured mode at 200
-   laugh and 200 non-laugh samples a laugh (a train split of 29,600 rows):
+   CLIs on the card: (a) ``cli/create_data_df`` in structured mode at 100
+   laugh and 100 non-laugh samples a laugh (a train split of 14,800 rows):
    every split's non-laugh rows the 70/10/20 silence/noise/speech mix and
    its meetings its own; (b) ``cli/compute_features --device cuda`` over
    every split: one fbank launch per 30,000-frame bucket of every track, a
    cached track (two buckets, the last partial) within TOL of the plain
    featurizer on the same PCM on the card, and a second run featurizes
-   nothing; (c) ``cli/train --config resnet_base`` for one epoch (925
-   steps of 32, a log point with validation at step 900) streamed
-   (``--device_cache off``), resident (``on``) and resident with
-   ``--steps_per_dispatch 4``, under cuDNN deterministic: the three
-   checkpoints within 1e-6, the resident runs naming their row count; (d)
-   the streamed run stopped by SIGTERM before step 401 and resumed through
-   the CLI (``skip_assembly``) within 1e-6 of the uninterrupted one; (e)
+   nothing; (c) ``cli/train --config resnet_base`` for one epoch (463
+   steps of 32; the preset logs every 900 steps, so the epoch has no log
+   point: tests/test_torch_train_resident.py runs the CLI's log point)
+   streamed (``--device_cache off``), resident (``on``) and resident with
+   ``--steps_per_dispatch 4``, under the cuDNN deterministic mode
+   ``cli/train`` sets itself on the card (the phase sets nothing): the
+   three checkpoints within 1e-6, the resident runs naming their row
+   count; (d) the streamed run stopped by SIGTERM before step 232 and
+   resumed through the CLI (``skip_assembly``) within 1e-6 of the
+   uninterrupted one; (e)
    the trained checkpoint through ``cli/segment_laughter``, its TextGrid
    equal to the smoothing of ``LaughterPipeline`` with those weights; (f)
    train steps per second streamed and resident at B = 32 and 1024 (host
@@ -176,10 +181,18 @@ Phases (any failure exits non-zero and prints no result):
    phase 10's tables; the coordinator featurizes into a fresh cache first,
    rank 1 after the barrier): its checkpoint took one process's step (the
    rule of (b), from the checkpoints' Adam moments);
-15. the card, one JSON line of the kernels (the fbank kernel at the main
+15. the bench — ``python -m laughter_detection_icsi_tpu_torch.bench`` in a
+   subprocess (``BENCH_HISTORY=off``): the default mode within a 90 s
+   budget (rc 0, one JSON line, ``platform`` cuda, ``value`` > 0,
+   ``device_x_realtime`` and ``fused_conv_device_x_realtime`` present; its
+   profiled 600 s windows call launching the fbank kernel once per bucket,
+   10, as its stderr's breakdown reads), then ``--train`` within 60 s
+   (``value`` and ``deterministic_samples_per_s`` > 0); the seconds of each;
+16. the card, one JSON line of the kernels (the fbank kernel at the main
    path's bucket; ``launches`` counted on phase 8's sweep, the launches of
-   every path, the bf16 paths', the e2e artifact's and each rank's of
-   phase 14 included, beside them), then the result line.
+   every path, the bf16 paths', the e2e artifact's, each rank's of phase 14
+   and the bench's profiled call included, beside them), then the result
+   line.
 
 Phases 4-10 and 14 compare float32 numbers and pass ``precision='float32'`` (or
 ``--precision float32``) explicitly: the card's default is bf16.
@@ -202,6 +215,11 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent
+sys.path.insert(0, str(REPO))
+try:  # the port's measurement helpers; outside a checkout, main() says what is missing
+    from laughter_detection_icsi_tpu_torch.utils.timing import cuda_ms, device_breakdown, kernel_kind
+except ImportError:
+    cuda_ms = device_breakdown = kernel_kind = None
 TOL = dict(atol=2e-4, rtol=1e-4)  # tests/test_fbank_pallas.py's feature tolerance
 #: JAX ``fbank_jit``'s largest error against float64 truth on ``tone()``
 #: (tests/test_torch_fbank_tf32.py measures it on the CPU): the kernel is
@@ -299,34 +317,6 @@ def seeded_state_dict(model, seed: int, head_gain: float = 0.03):
             w = rng.standard_normal(shape) * math.sqrt(2.0 / np.prod(shape[1:]))
             params[key] = (w * (head_gain if key.startswith("linear2") else 1.0)).astype(np.float32)
     return state_dict_from_jax(params, state)
-
-
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
-    events; inputs stay L2-warm across calls).
-
-    A device-side wait is queued ahead of the timed calls, so the host has
-    queued all of them before the device starts the first: the events then
-    time the device, not the host's launch rate (a wrapper's Python costs
-    tens of microseconds a call, which a 0.1 ms kernel would otherwise
-    wait for)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for cycles in (10**8, 10**9):  # ~0.05 s and ~0.5 s at H100 clocks
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        queued_ahead = not start.query()  # the device is still in the wait
-        end.synchronize()
-        if queued_ahead:
-            return start.elapsed_time(end) / iters
-    raise PhaseError("the host could not queue the timed calls ahead of the device")
 
 
 def phase_device():
@@ -1541,8 +1531,10 @@ def phase_train(card, work: Path, ctx: dict) -> int:
             opt, _ = t.train_batch(opt, bb, gens[s])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms = []
-        for _ in range(3):
+
+        def timed():
+            """(device ms, host ms) a step over n_steps steps."""
+            nonlocal opt
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             start.record()
@@ -1550,23 +1542,47 @@ def phase_train(card, work: Path, ctx: dict) -> int:
                 opt, _ = t.train_batch(opt, bb, gens[s])
             end.record()
             end.synchronize()
-            ms.append((start.elapsed_time(end) / n_steps, 1e3 * (time.perf_counter() - t0) / n_steps))
+            return start.elapsed_time(end) / n_steps, 1e3 * (time.perf_counter() - t0) / n_steps
+
+        ms = [timed() for _ in range(3)]
         best = min(ms)
         peak = torch.cuda.max_memory_allocated()
         print(f"(e) B={b} on {card}: {1e3 / best[0]:.2f} train steps per second (best of 3 x {n_steps}: "
               f"{', '.join(f'{d:.3f}' for d, _ in ms)} ms a step between CUDA events; host clock "
               f"{best[1]:.3f} ms); {b * 1e3 / best[0]:.0f} windows per second; peak device memory "
               f"{peak / 2**30:.3f} GiB")
+        if b == TRAIN_SIZES[0]:
+            # What cli/train's cuDNN flags (deterministic, no autotuning)
+            # cost at the preset's batch (bench --train measures B = 1024):
+            # in turns with the flags as they are (A B B A B A), best of 3
+            # each, as the host-bound rate drifts over a run.
+            from laughter_detection_icsi_tpu_torch.cli.train import CUDNN_FLAGS, cudnn_flags
+
+            now = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+            with cudnn_flags(CUDNN_FLAGS):
+                timed()  # warm under the flags
+            turns = {True: [], False: []}
+            for det in (True, False, False, True, True, False):
+                with cudnn_flags(CUDNN_FLAGS if det else None):
+                    turns[det].append(timed()[0])
+            on, off = min(turns[True]), min(turns[False])
+            print(f"    cli/train's cuDNN flags (deterministic {CUDNN_FLAGS[0]}, benchmark "
+                  f"{CUDNN_FLAGS[1]}) in turns with (deterministic {now[0]}, benchmark {now[1]}), "
+                  f"best of 3 x {n_steps} each: {1e3 / on:.2f} against {1e3 / off:.2f} steps per "
+                  f"second ({', '.join(f'{d:.3f}' for d in turns[True])} against "
+                  f"{', '.join(f'{d:.3f}' for d in turns[False])} ms a step): "
+                  f"{100 * (1 - off / on):.1f}% fewer")
         train_breakdown(f"B={b}", lambda: t.train_batch(opt, bb, gens[0]), work / f"train_{b}.trace.json")
         ctx.setdefault("train_rate", {})[b] = 1e3 / best[0]
     return launches
 
 
 #: Phase 10's tables: laugh and non-laugh samples per laugh (structured mode).
-#: Bro012's 74 laughs give a train split of 29,600 rows: 925 steps of the
-#: preset's batch of 32, one log point (step 900) in the epoch.
-CORPUS_SAMPLES = (200, 200)
-MIN_TRAIN_ROWS = 16_000
+#: Bro012's 74 laughs give a train split of 14,800 rows: 463 steps of the
+#: preset's batch of 32 an epoch (cut from 200 + 200, 925 steps, to keep
+#: the script's time: the log point at step 900 went with them).
+CORPUS_SAMPLES = (100, 100)
+MIN_TRAIN_ROWS = 8_000
 
 
 def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
@@ -1686,15 +1702,14 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
     base = ["--config", "resnet_base", "--data_root", str(root), "--data_dfs_dir", str(dfs),
             "--feats_dir", str(feats), "--signals_dir", str(adir), "--device", DEVICE,
             "--seed", "3"]
-    cudnn = torch.backends.cudnn
-    saved = (cudnn.deterministic, cudnn.benchmark, signal.getsignal(signal.SIGTERM),
-             signal.getsignal(signal.SIGINT))
+    # No cuDNN flags are set here: cli/train takes the deterministic mode on
+    # the card itself, which is what makes the runs below equal.
+    saved = signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT)
     real_step = Trainer.train_batch
     steps = -(-n_train // preset.batch_size)
     cut_at = min(400, steps // 2)
     runs = {}
     try:
-        cudnn.deterministic, cudnn.benchmark = True, False  # the runs take the same algorithms
         for name, flags in (("streamed", ["--device_cache", "off"]),
                             ("resident", ["--device_cache", "on"]),
                             ("resident_k4", ["--device_cache", "on", "--steps_per_dispatch", "4"])):
@@ -1724,9 +1739,8 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
         runs["resumed"] = (ckpt_lib.load_checkpoint(str(root / "cut" / "last.ckpt.npz")), resume_s, out)
     finally:
         Trainer.train_batch = real_step
-        cudnn.deterministic, cudnn.benchmark = saved[:2]
-        signal.signal(signal.SIGTERM, saved[2])
-        signal.signal(signal.SIGINT, saved[3])
+        signal.signal(signal.SIGTERM, saved[0])
+        signal.signal(signal.SIGINT, saved[1])
     ref = runs["streamed"][0]
     log = preset.log_frequency
     val = re.search(rf"step {log}: .*val_loss=([\d.]+)", runs["streamed"][2])
@@ -1747,7 +1761,7 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
     print(f"(c) cli/train --config resnet_base --device {DEVICE}, one epoch of {n_train} rows = "
           f"{steps} steps of {preset.batch_size} (dropout 0.5; "
           + (f"log point at step {log}, val loss {float(val[1]):.4f}" if val else "no log point")
-          + f"; cuDNN deterministic): streamed {runs['streamed'][1]:.1f} s, "
+          + f"; cli/train's cuDNN deterministic): streamed {runs['streamed'][1]:.1f} s, "
           f"resident {runs['resident'][1]:.1f} s ({n_train} train windows resident), resident "
           f"with --steps_per_dispatch 4 {runs['resident_k4'][1]:.1f} s; checkpoints (weights, "
           f"buffers, Adam moments) vs streamed: "
@@ -2760,6 +2774,62 @@ def phase_multiprocess(card, work: Path, ctx: dict) -> dict:
     return dict(sweep=sweep_launches, train=train_launches)
 
 
+#: Phase 15's budgets (BENCH_TOTAL_BUDGET_S) for the bench's default and
+#: --train modes.
+BENCH_BUDGETS = {"default": 90, "--train": 60}
+
+
+def phase_bench(card) -> dict:
+    """The bench's contract on the card (see the module docstring, phase
+    15).  Returns {mode: (record, seconds)} and, under 'launches', the fbank
+    launches of the default mode's profiled call as its stderr reads them
+    (None where it printed no breakdown)."""
+    out = {}
+    for mode, budget in BENCH_BUDGETS.items():
+        args = [] if mode == "default" else [mode]
+        env = dict(os.environ, BENCH_HISTORY="off", BENCH_TOTAL_BUDGET_S=str(budget))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "laughter_detection_icsi_tpu_torch.bench", *args],
+                           cwd=REPO, env=env, capture_output=True, text=True, timeout=budget + 120)
+        secs = time.perf_counter() - t0
+        lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+        check(r.returncode == 0 and len(lines) == 1,
+              f"bench {mode}: rc {r.returncode}, {len(lines)} stdout lines (want 1); stderr "
+              f"ends: {r.stderr[-3000:]}")
+        rec = json.loads(lines[-1])
+        check(rec.get("platform") == "cuda" and (rec.get("value") or 0) > 0,
+              f"bench {mode}: platform {rec.get('platform')!r}, value {rec.get('value')!r}")
+        if mode == "default":
+            missing = [k for k in ("device_x_realtime", "fused_conv_device_x_realtime")
+                       if k not in rec]
+            check(not missing, f"bench: {missing} missing from {rec}")
+            m = re.search(r"fbank kernel: (\d+) launches", r.stderr)
+            out["launches"] = int(m.group(1)) if m else None
+            buckets = -(-rec["audio_s"] * 100 // 6144)
+            check(out["launches"] in (None, buckets),
+                  f"bench: the profiled {rec['audio_s']} s call launched the fbank kernel "
+                  f"{out['launches']} times for {buckets} buckets")
+            print(f"bench (default, budget {budget} s) in {secs:.1f} s on {card}: "
+                  f"{rec['value']}x realtime e2e ({rec['audio_s']} s of audio, "
+                  f"{rec['precision']}), device_x_realtime {rec['device_x_realtime']}, "
+                  f"fused_conv_device_x_realtime {rec['fused_conv_device_x_realtime']}, "
+                  f"upload_s {rec.get('upload_s')}, warmup_s {rec['warmup_s']}; the profiled "
+                  f"call's fbank launches: "
+                  + (f"{out['launches']} ({buckets} buckets)" if out["launches"] is not None
+                     else "not measured (no breakdown printed)"))
+        else:
+            check((rec.get("deterministic_samples_per_s") or 0) > 0,
+                  f"bench --train: deterministic_samples_per_s {rec.get('deterministic_samples_per_s')!r}")
+            print(f"bench --train (budget {budget} s) in {secs:.1f} s on {card}: B = "
+                  f"{rec['batch_size']} {rec['precision']}: {rec['value']} samples/s under "
+                  f"cli/train's flags, deterministic {rec['deterministic_samples_per_s']}, "
+                  f"PyTorch's default {rec.get('nondeterministic_samples_per_s')} (cost "
+                  f"{rec.get('deterministic_cost')}; best of 2 each, in turns: "
+                  f"{[r[1] for r in rec.get('readings', [])]})")
+        out[mode] = (rec, secs)
+    return out
+
+
 def worker_main(task: str, spec_path: str, rank: int) -> int:
     """One process of a phase-14 group: ``chip_smoke.py --worker TASK
     SPEC.json RANK``.  Tasks: ``dp`` (phase 14 (b): the recorded steps, the
@@ -2974,77 +3044,6 @@ def train_breakdown(what: str, step, trace_path: Path, steps: int = 5):
     return busy_us / 1e3 / wall_ms
 
 
-#: Kernel-name fragments of the convolutions (cuDNN's and its GEMM engines;
-#: the head's small matmuls land here too).
-CONV_NAMES = ("conv", "cudnn", "xmma", "dgrad", "wgrad", "fprop", "winograd", "gemm", "cutlass")
-
-
-def kernel_kind(name: str) -> str:
-    """A device op's kind for the breakdowns: fbank, layout (cuDNN's
-    NCHW <-> NHWC transposes around a bf16 conv), convs, cat, copies or
-    elementwise (BN, ReLU, pads, casts, fills, gathers: the rest)."""
-    low = name.lower()
-    if "fbank_kernel" in name:
-        return "fbank"
-    if "nchwtonhwc" in low or "nhwctonchw" in low:
-        return "layout"
-    if any(c in low for c in CONV_NAMES):
-        return "convs"
-    if "catarray" in low:
-        return "cat"
-    if low.startswith("memcpy") or low.startswith("memset"):
-        return "copies"
-    return "elementwise"
-
-
-def device_breakdown(what: str, fn, best_s: float, trace_path: Path) -> None:
-    """Profile one call of ``fn`` (torch.profiler) and print where its device
-    time goes: the busy share of the call's wall time, the kernels with the
-    most device time, the shares of each kind (``kernel_kind``) and the
-    fbank kernel's share.  A profiler that records no device activity
-    leaves these unmeasured: that says nothing about the port, so it is
-    reported and not failed."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    prof.export_chrome_trace(str(trace_path))
-    events = json.loads(trace_path.read_text()).get("traceEvents", [])
-    dev = [e for e in events if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not dev:
-        print("device breakdown: not measured (the profiler recorded no device activity)")
-        return
-    by_name = {}
-    for e in dev:
-        n, us = by_name.get(e["name"], (0, 0.0))
-        by_name[e["name"]] = (n + 1, us + float(e["dur"]))
-    total_ms = sum(us for _, us in by_name.values()) / 1e3
-    busy_us, end = 0.0, -math.inf  # union of the device's intervals
-    for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev):
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    busy_ms = busy_us / 1e3
-    print(f"profiled {what}: wall {wall_ms:.2f} ms, {len(dev)} device ops, "
-          f"device time {total_ms:.2f} ms, busy {busy_ms:.2f} ms = "
-          f"{100 * busy_ms / wall_ms:.1f}% of this call's wall "
-          f"({100 * busy_ms / (1e3 * best_s):.1f}% of the best unprofiled e2e)")
-    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
-        print(f"  {100 * us / 1e3 / total_ms:5.1f}% {us / 1e3:9.3f} ms  x{n:<5d} {name[:100]}")
-    kinds = {}
-    for name, (_, us) in by_name.items():
-        kinds[kernel_kind(name)] = kinds.get(kernel_kind(name), 0.0) + us / 1e3
-    print("  by kind: " + ", ".join(f"{k} {100 * ms / total_ms:.1f}%"
-                                    for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1])))
-    fb_ms = sum(us for name, (_, us) in by_name.items() if "fbank_kernel" in name) / 1e3
-    print(f"  fbank kernel: {fb_ms:.3f} ms = {100 * fb_ms / total_ms:.2f}% of device time")
-
-
 def main() -> int:
     try:
         import torch
@@ -3058,7 +3057,6 @@ def main() -> int:
         print(f"chip_smoke: FAILED: no laughter_detection_icsi_tpu_torch package beside "
               f"{Path(__file__).name}; run it from a checkout", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
     work = REPO / "build" / "chip_smoke" / "run"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -3094,6 +3092,8 @@ def main() -> int:
         artifact = phase_export(card, work, ctx)
         header("14. multi-process")
         multi = phase_multiprocess(card, work, ctx)
+        header("15. the bench")
+        benched = phase_bench(card)
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -3108,7 +3108,8 @@ def main() -> int:
                "training_features": trained, "compute_features": featurized["launches"],
                **bf16, "e2e_artifact": artifact,
                **{f"multiprocess_sweep_rank{r}": n for r, n in enumerate(multi["sweep"])},
-               **{f"multiprocess_train_features_rank{r}": n for r, n in enumerate(multi["train"])}}
+               **{f"multiprocess_train_features_rank{r}": n for r, n in enumerate(multi["train"])},
+               "bench_profiled_windows_call": benched["launches"]}
     print(f"fbank launches per path: windows {ctx['launches']} ({ctx['n_buckets']} buckets), "
           f"fused_conv {fused} (one file), serve replay {streamed} ({ctx['n_buckets']} buckets "
           f"+ warm-up), multichannel {batched} (bucket batches of 4 channels), corpus sweep "
@@ -3119,7 +3120,8 @@ def main() -> int:
           f"{bf16['sweep_bf16']}; the e2e artifact {artifact} ({ctx['n_buckets']} buckets); "
           f"two processes: the sweep {multi['sweep']} by rank (each its 2 channels' bucket "
           f"batches + a warm-up), cli/train's featurization {multi['train']} by rank (rank 0 "
-          f"first, rank 1 after the barrier)")
+          f"first, rank 1 after the barrier); the bench's profiled windows call "
+          f"{benched['launches']} (its stderr's breakdown)")
     entry["max_abs_err"] = max(entry["max_abs_err"], swept["max_err"], featurized["max_err"])
     entry = {"name": entry.pop("name"), "route": entry.pop("route"),
              "source": entry.pop("source"), "replaces": entry.pop("replaces"),

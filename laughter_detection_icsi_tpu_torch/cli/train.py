@@ -32,20 +32,48 @@ card a process, or ``torchrun ... --distributed``).  Each process feeds
 its block of every global batch; the coordinator featurizes first and
 alone writes checkpoints and metrics; a SIGTERM on any process stops all
 at one step boundary.
+
+On ``cuda`` the run takes cuDNN's deterministic algorithms and no
+autotuning (``CUDNN_FLAGS``), so two steps on the same values agree bit for
+bit and a resumed run ends where an uninterrupted one does, as the JAX
+package's does under XLA; ``main`` restores the caller's flags when it
+returns.  What the mode costs is in PERF.md (``bench --train`` measures
+both settings).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import os
 import sys
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 COMPAT_FLAGS = ("torch_device", "include_words", "train_on_noisy_audioset", "num_workers",
                 "lhotse_dir")
+
+#: ``torch.backends.cudnn``'s (deterministic, benchmark) for a run on ``cuda``.
+CUDNN_FLAGS = (True, False)
+
+
+@contextlib.contextmanager
+def cudnn_flags(flags: Optional[Tuple[bool, bool]] = None):
+    """``torch.backends.cudnn``'s (deterministic, benchmark) set to
+    ``flags`` inside the block (None leaves them as they are); the
+    previous ones restored after it."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    if flags is not None:
+        cudnn.deterministic, cudnn.benchmark = flags
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,7 +138,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace_dir", type=str, default=None,
                    help="write a torch.profiler trace of the training run here")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to train on (default: cuda)")
+                   help="torch device to train on (default: cuda).  On cuda "
+                        "the run uses cuDNN's deterministic algorithms, so "
+                        "its steps are reproducible and a resume is exact")
     return p
 
 
@@ -132,6 +162,11 @@ def _ensure_features(cache, rows, signals_dir: str, device) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    with cudnn_flags():  # the run may set CUDNN_FLAGS; the caller gets its own back
+        return _train(argv)
+
+
+def _train(argv: Optional[List[str]]) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     # Against the parser's default: num_workers and lhotse_dir have truthy
@@ -168,6 +203,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             "process would train its own divergent copy"
         )
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        import torch
+
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = CUDNN_FLAGS
 
     from laughter_detection_icsi_tpu_torch.data import (
         FeatureCache, LadDataset, ResidentLadDataset, load_split_df)

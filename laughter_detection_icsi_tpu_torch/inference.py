@@ -191,10 +191,11 @@ def scale_pcm(wave: torch.Tensor) -> torch.Tensor:
     return wave
 
 
-def upload_wave(buf: np.ndarray, device: torch.device) -> torch.Tensor:
+def upload_wave(buf: Union[np.ndarray, torch.Tensor], device: torch.device) -> torch.Tensor:
     """One host buffer to the device as float32: int16 ships as int16 and
-    is scaled by 1/32768 there (the same numbers as scaling on the host)."""
-    return scale_pcm(torch.from_numpy(buf).to(device))
+    is scaled by 1/32768 there (the same numbers as scaling on the host).
+    A tensor already on the device is only scaled."""
+    return scale_pcm(torch.as_tensor(buf).to(device))
 
 
 def upload_packed(
@@ -298,12 +299,13 @@ def track_wave_len(total_frames: int, feat_cfg: FeatConfig = FEAT) -> int:
 
 
 def fused_conv_probs(
-    model: torch.nn.Module, bufs: np.ndarray, valid: Sequence[int],
+    model: torch.nn.Module, bufs: Union[np.ndarray, torch.Tensor], valid: Sequence[int],
     feat_cfg: FeatConfig, window: int, device: torch.device,
     precision: str = "float32",
 ) -> torch.Tensor:
     """mode='fused_conv' over a channel batch: [C, wave_len] whole-track
-    buffers and each channel's frame count -> [C, total] float32
+    buffers (on the host, or already on the device) and each channel's
+    frame count -> [C, total] float32
     probabilities on the device.  One fbank launch featurizes the batch;
     frames at or past a channel's count are zeroed and the features cast to
     ``precision``'s dtype (``model`` is in that dtype); the dilated conv

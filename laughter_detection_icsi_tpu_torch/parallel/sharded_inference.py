@@ -199,11 +199,18 @@ class ShardedPipeline(LaughterPipeline):
         (``classify_bucket``, at the same chunk), so a row equals that
         channel run alone, and the activations live are one channel's."""
         with torch.inference_mode(), precision_scope(self.settings.precision):
-            feats = fbank_cuda(self._upload(batch), host_prep.snip_cfg(self.feat_cfg))
-            return torch.stack([
-                classify_bucket(self.model, f, int(v), self.settings, self.shared_stem)
-                for f, v in zip(feats, valid)
-            ])
+            return self.bucket_batch_body(self._upload(batch), valid)
+
+    def bucket_batch_body(self, waves: torch.Tensor, valid) -> torch.Tensor:
+        """A bucket batch's float32 waves on the device ([C, wave_len]) and
+        each channel's valid frames -> [C, n_chunks * chunk] probabilities:
+        the batch body of :meth:`_bucket_probs_batch`, as
+        ``LaughterPipeline.bucket_body`` is the single channel's."""
+        feats = fbank_cuda(waves, host_prep.snip_cfg(self.feat_cfg))
+        return torch.stack([
+            classify_bucket(self.model, f, int(v), self.settings, self.shared_stem)
+            for f, v in zip(feats, valid)
+        ])
 
     def probs_for_meeting(
         self, audio_paths: Sequence[str], channel: int = 0

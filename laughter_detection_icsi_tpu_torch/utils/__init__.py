@@ -1,1 +1,1 @@
-"""Utilities: profiling and throughput counters."""
+"""Utilities: profiling, throughput counters and device timing."""

@@ -7,6 +7,8 @@ machine without them:
 """
 
 import dataclasses
+import subprocess
+import time
 
 import numpy as np
 import pytest
@@ -359,3 +361,43 @@ def test_e2e_artifact_equals_the_live_pipeline_on_the_card(card, tmp_path):
     assert fbank_cuda.launches - before == 3 and got.is_cuda
     np.testing.assert_allclose(got.cpu().numpy(), pipe.probs_for_waveform(wave), rtol=0,
                                atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_hard_block_waits_for_a_long_kernel(card):
+    """``hard_block`` behind ~0.5 s of device work returns the sum the
+    work produced: it cannot return before the device ran."""
+    from laughter_detection_icsi_tpu_torch.utils import timing
+
+    x = torch.ones(4096, 4096, device=card)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(10**9)  # the product waits behind it on the stream
+    y = x @ x  # every element 4096
+    t0 = time.perf_counter()
+    got = timing.hard_block({"y": y, "x": [x]})
+    waited = time.perf_counter() - t0
+    want = 4096.0**3 + 4096.0**2
+    assert got == pytest.approx(want, rel=1e-6), (got, want, y.double().sum().item())
+    assert waited > 0.1, waited
+
+
+def _sm_clock_mhz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                          "-i", "0"], capture_output=True, text=True, timeout=30)
+    return float(out.stdout.split()[0])
+
+
+@pytest.mark.cuda
+def test_cuda_ms_times_the_device(card):
+    """``cuda_ms`` of ``torch.cuda._sleep(cycles)`` within 20% of the
+    cycles at the SM clock nvidia-smi reads while the card spins."""
+    from laughter_detection_icsi_tpu_torch.utils import timing
+
+    cycles = 10**7
+    torch.cuda._sleep(4 * 10**9)  # ~2 s of spinning: the clock under load
+    time.sleep(0.5)
+    mhz = _sm_clock_mhz()
+    torch.cuda.synchronize()
+    got = timing.cuda_ms(lambda: torch.cuda._sleep(cycles), iters=20)
+    want = cycles / (mhz * 1e3)
+    assert abs(got - want) <= 0.2 * want, (got, want, mhz)

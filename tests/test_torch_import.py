@@ -52,7 +52,7 @@ def test_port_never_imports_jax():
                 "data.dataset", "data.feature_cache", "data.sampler", "cli.create_data_df",
                 "cli.compute_features", "cli.train", "export", "cli.export_model",
                 "cli.convert_checkpoint", "parallel.mesh", "parallel.distributed",
-                "parallel.data_parallel"):
+                "parallel.data_parallel", "utils.timing", "bench"):
         assert f"laughter_detection_icsi_tpu_torch.{mod}" in names, mod
     # Every CLI's --help ran: segment_laughter's, serve's, sweep's, analyse's,
     # create_data_df's, compute_features's, train's, export_model's,
@@ -84,7 +84,8 @@ def test_sources_name_no_jax_import():
     for name in ("data/dataset.py", "data/feature_cache.py", "data/sampler.py",
                  "cli/create_data_df.py", "cli/compute_features.py", "cli/train.py",
                  "export.py", "cli/export_model.py", "cli/convert_checkpoint.py",
-                 "parallel/mesh.py", "parallel/distributed.py", "parallel/data_parallel.py"):
+                 "parallel/mesh.py", "parallel/distributed.py", "parallel/data_parallel.py",
+                 "utils/timing.py", "bench.py"):
         assert PORT / name in files, name
     offenders = [str(f.relative_to(REPO)) for f in files if _IMPORT.search(f.read_text())]
     assert offenders == []

@@ -346,6 +346,57 @@ def test_cli_trains_in_bfloat16(corpus):
     assert any(not torch.equal(v, want["state_dict"][k]) for k, v in got["state_dict"].items())
 
 
+@pytest.mark.parametrize("cache", ["off", "on"])
+def test_cli_log_points_validate_and_keep_the_best(corpus, cache, monkeypatch):
+    """At a log point the CLI validates on the dev split (streamed batches,
+    or the resident split's markers), writes the metric row and the best
+    checkpoint: the preset logs every 3 steps here (the 24-row split's 6
+    steps of 4 hold two log points)."""
+    import dataclasses
+
+    from laughter_detection_icsi_tpu_torch import config
+
+    preset = config.MODEL_MAP["resnet_base"]
+    monkeypatch.setitem(config.MODEL_MAP, "resnet_base", dataclasses.replace(preset, log_frequency=3))
+    name = f"log_{cache}"
+    rc, out = run(train.main, train_argv(corpus, name, "--device_cache", cache,
+                                         "--val_batches_per_log", "2"))
+    assert rc == 0 and "epoch 1 done" in out
+    assert "step 3: " in out and "step 6: " in out and "val_loss=" in out
+    with open(corpus / name / "metrics.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert [int(r["global_step"]) for r in rows] == [3, 6]
+    assert all(np.isfinite(float(r["val_loss"])) for r in rows)
+    best = ckpt.load_checkpoint(str(corpus / name / ckpt.BEST_NAME))
+    assert best["global_step"] in (3, 6)
+    assert best["best_val_loss"] == min(float(r["val_loss"]) for r in rows)
+
+
+def test_cli_leaves_the_cudnn_flags_as_it_found_them(corpus, monkeypatch):
+    """cli/train sets cuDNN's flags only on cuda (``CUDNN_FLAGS``, the
+    exact resume there): on the CPU the run trains under the caller's
+    flags, and main hands them back as it found them."""
+    cudnn = torch.backends.cudnn
+    seen = []
+    run_epoch = TrainLoop.run_epoch
+
+    def spy(self, *a, **kw):
+        seen.append((cudnn.deterministic, cudnn.benchmark))
+        return run_epoch(self, *a, **kw)
+
+    monkeypatch.setattr(TrainLoop, "run_epoch", spy)
+    assert train.CUDNN_FLAGS == (True, False)
+    saved = cudnn.deterministic, cudnn.benchmark
+    try:
+        cudnn.deterministic, cudnn.benchmark = False, True  # not cli/train's
+        rc, out = run(train.main, train_argv(corpus, "flags", "--device_cache", "off"))
+        assert rc == 0 and "epoch 1 done" in out
+        assert seen == [(False, True)]
+        assert (cudnn.deterministic, cudnn.benchmark) == (False, True)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def test_cli_guards(corpus, tmp_path):
     rc, out = run(train.main, train_argv(corpus, "compat", "--num_workers", "2",
                                          "--device_cache", "off"))
