@@ -103,14 +103,14 @@ Phases (any failure exits non-zero and prints no result):
    every split: one fbank launch per 30,000-frame bucket of every track, a
    cached track (two buckets, the last partial) within TOL of the plain
    featurizer on the same PCM on the card, and a second run featurizes
-   nothing; (c) ``cli/train --config resnet_base`` for one epoch (463
-   steps of 32; the preset logs every 900 steps, so the epoch has no log
+   nothing; (c) ``cli/train --config resnet_base`` for one epoch of every
+   other row of the train table (7,400 rows, 232 steps of 32; the preset logs every 900 steps, so the epoch has no log
    point: tests/test_torch_train_resident.py runs the CLI's log point)
    streamed (``--device_cache off``), resident (``on``) and resident with
    ``--steps_per_dispatch 4``, under the cuDNN deterministic mode
    ``cli/train`` sets itself on the card (the phase sets nothing): the
    three checkpoints within 1e-6, the resident runs naming their row
-   count; (d) the streamed run stopped by SIGTERM before step 232 and
+   count; (d) the streamed run stopped by SIGTERM before step 117 and
    resumed through the CLI (``skip_assembly``) within 1e-6 of the
    uninterrupted one; (e)
    the trained checkpoint through ``cli/segment_laughter``, its TextGrid
@@ -188,14 +188,33 @@ Phases (any failure exits non-zero and prints no result):
    profiled 600 s windows call launching the fbank kernel once per bucket,
    10, as its stderr's breakdown reads), then ``--train`` within 60 s
    (``value`` and ``deterministic_samples_per_s`` > 0); the seconds of each;
-16. the card, one JSON line of the kernels (the fbank kernel at the main
+16. parity, demos and tools — (a) the drill's inputs
+   (tests/fixtures/parity_inputs.py: the synthetic transcripts, Btr001's two
+   channels of 2.5 s, a full-width ``resnet_base`` checkpoint from numpy
+   seeds) through ``cli/parity.main --device cuda`` against the goldens the
+   JAX package's parity CLI wrote on the CPU (tests/fixtures/
+   parity_goldens/): all five checks pass, none skipped, probabilities
+   within 1e-4 (the other limits the CLI's defaults); each check's largest
+   difference beside its limit, the smallest margin of a card probability
+   to a threshold of the goldens' grid; the fbank kernel launched once a
+   file by the features check and once a bucket on every other path of the
+   run; (b) ``examples/demo_torch.py`` and ``examples/streaming_demo_torch.py
+   --device cuda`` in processes of their own, started first: rc 0, the
+   demo's TextGrids and evaluation table, its kernel launches (one a track
+   featurized, one a bucket classified), the streaming demo's bit-equality
+   line; (c) ``cli/laughs_to_wav --concat`` on phase 4's TextGrid and
+   audio: each piece the int16 of its interval, the gaps silent; (d)
+   ``cli/probe_audio_loading`` on a shorten channel of phase 8's corpus
+   names the native decoder;
+17. the card, one JSON line of the kernels (the fbank kernel at the main
    path's bucket; ``launches`` counted on phase 8's sweep, the launches of
-   every path, the bf16 paths', the e2e artifact's, each rank's of phase 14
-   and the bench's profiled call included, beside them), then the result
-   line.
+   every path, the bf16 paths', the e2e artifact's, each rank's of phase 14,
+   the bench's profiled call and phase 16's paths included, beside them),
+   then the result line.
 
 Phases 4-10 and 14 compare float32 numbers and pass ``precision='float32'`` (or
-``--precision float32``) explicitly: the card's default is bf16.
+``--precision float32``) explicitly: the card's default is bf16.  Phase 16's
+parity CLI runs in float32 on every device.
 
 The script imports neither JAX nor the JAX package.
 """
@@ -1578,9 +1597,11 @@ def phase_train(card, work: Path, ctx: dict) -> int:
 
 
 #: Phase 10's tables: laugh and non-laugh samples per laugh (structured mode).
-#: Bro012's 74 laughs give a train split of 14,800 rows: 463 steps of the
-#: preset's batch of 32 an epoch (cut from 200 + 200, 925 steps, to keep
-#: the script's time: the log point at step 900 went with them).
+#: Bro012's 74 laughs give a train split of 14,800 rows (cut from 200 + 200
+#: to keep the script's time: the log point at step 900 went with them).
+#: The CLI runs train on every other row, 7,400 rows = 232 steps of the
+#: preset's batch of 32 an epoch (the same cut again: cli/train's B = 32
+#: epochs are host-bound); phase 14 takes its rows from the whole table.
 CORPUS_SAMPLES = (100, 100)
 MIN_TRAIN_ROWS = 8_000
 
@@ -1603,7 +1624,7 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
     from laughter_detection_icsi_tpu_torch.config import (
         FEAT, MODEL_MAP, PARTITIONS, split_of_meeting)
     from laughter_detection_icsi_tpu_torch.data import (
-        FeatureCache, LadDataset, ResidentLadDataset, load_split_df)
+        FeatureCache, LadDataset, ResidentLadDataset, load_split_df, write_data_dfs)
     from laughter_detection_icsi_tpu_torch.data.dataset import _epoch_slices
     from laughter_detection_icsi_tpu_torch.eval import textgrid
     from laughter_detection_icsi_tpu_torch.eval import transcript as transcript_lib
@@ -1617,7 +1638,7 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
     tdir, adir, paths = ctx["corpus"]
     root = work / "train_data"
     dfs, feats = root / "data_dfs", root / "feats"
-    ctx["train_data"] = (root, dfs, feats, adir)  # the bf16 phase trains on them
+    ctx["train_data"] = (root, dfs, feats, adir)  # phase 14 trains on them
     preset = MODEL_MAP["resnet_base"]
 
     def cli(main, argv):
@@ -1698,6 +1719,13 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
           f"second compute_features: {out[-200:]}, {fbank_cuda.launches} launches")
     print(f"    a second run featurized nothing ({len(metas)} cached, 0 launches)")
 
+    # (c)-(f) and phase 12's bf16 epoch train on every other row of the
+    # train table (see CORPUS_SAMPLES); phase 14 keeps the whole table.
+    dfs = root / "data_dfs_cli"
+    write_data_dfs({**tables, "train": tables["train"][::2]}, str(dfs))
+    n_cli = len(tables["train"][::2])
+    ctx["train_data_cli"] = (root, dfs, feats, adir)
+
     # (c) One epoch three ways, (d) SIGTERM mid-epoch and resume.
     base = ["--config", "resnet_base", "--data_root", str(root), "--data_dfs_dir", str(dfs),
             "--feats_dir", str(feats), "--signals_dir", str(adir), "--device", DEVICE,
@@ -1706,7 +1734,7 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
     # the card itself, which is what makes the runs below equal.
     saved = signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT)
     real_step = Trainer.train_batch
-    steps = -(-n_train // preset.batch_size)
+    steps = -(-n_cli // preset.batch_size)
     cut_at = min(400, steps // 2)
     runs = {}
     try:
@@ -1718,7 +1746,7 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
             check(fbank_cuda.launches == 0, f"train {name}: featurized again")
             resident = re.search(r"device cache: (\d+) train windows resident", out)
             check((resident is not None) == (name != "streamed")
-                  and (resident is None or int(resident[1]) == n_train),
+                  and (resident is None or int(resident[1]) == n_cli),
                   f"train {name}: resident line {resident and resident[0]}")
             runs[name] = (ckpt_lib.load_checkpoint(str(root / name / "last.ckpt.npz")), took, out)
         calls = []
@@ -1758,11 +1786,11 @@ def phase_corpus_train(card, work: Path, ctx: dict) -> dict:
         check(diffs[name] <= 1e-6 and int(got["opt_state"].step) == steps,
               f"{name} checkpoint {diffs[name]:.3e} from the streamed one (weights, buffers, "
               f"Adam moments), Adam step {int(got['opt_state'].step)}")
-    print(f"(c) cli/train --config resnet_base --device {DEVICE}, one epoch of {n_train} rows = "
+    print(f"(c) cli/train --config resnet_base --device {DEVICE}, one epoch of {n_cli} rows = "
           f"{steps} steps of {preset.batch_size} (dropout 0.5; "
           + (f"log point at step {log}, val loss {float(val[1]):.4f}" if val else "no log point")
           + f"; cli/train's cuDNN deterministic): streamed {runs['streamed'][1]:.1f} s, "
-          f"resident {runs['resident'][1]:.1f} s ({n_train} train windows resident), resident "
+          f"resident {runs['resident'][1]:.1f} s ({n_cli} train windows resident), resident "
           f"with --steps_per_dispatch 4 {runs['resident_k4'][1]:.1f} s; checkpoints (weights, "
           f"buffers, Adam moments) vs streamed: "
           f"resident {diffs['resident']:.3e}, K=4 {diffs['resident_k4']:.3e} (limit 1e-6)")
@@ -2222,7 +2250,7 @@ def phase_bf16_train(card, work: Path, ctx: dict) -> None:
 
     # (d) cli/train --precision bfloat16, one epoch, resident; its checkpoint
     # loads in float32 and segments through the CLI.
-    root, dfs, feats_dir, adir = ctx["train_data"]
+    root, dfs, feats_dir, adir = ctx["train_data_cli"]
     out_dir = root / "bf16"
     text = io.StringIO()
     t0 = time.perf_counter()
@@ -2830,6 +2858,158 @@ def phase_bench(card) -> dict:
     return out
 
 
+PARITY_GOLDENS = REPO / "tests" / "fixtures" / "parity_goldens"
+PARITY_PROB_ATOL = 1e-4  # the card against the port on the CPU (phase 4's limit)
+
+
+def phase_parity(card, work: Path, ctx: dict) -> dict:
+    """The port against the JAX package's committed goldens, the demos and
+    the host tools (see the module docstring, phase 16).  Returns the fbank
+    launches of each new path."""
+    import contextlib
+    import io
+
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import inference
+    from laughter_detection_icsi_tpu_torch.cli import laughs_to_wav, parity, probe_audio_loading
+    from laughter_detection_icsi_tpu_torch.data import audio
+    from laughter_detection_icsi_tpu_torch.eval import textgrid
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda
+
+    # The drill's inputs, imported as the examples import the fixtures: with
+    # tests/ first on the path, no installed ``tests`` package can shadow them.
+    sys.path.insert(0, str(REPO / "tests"))
+    from fixtures import parity_inputs
+
+    t0 = time.perf_counter()
+    # (b) The demos run as processes of their own while (a) runs here.
+    demo_dir = work / "demo_torch"
+    demos = {name: subprocess.Popen([sys.executable, script, *extra, "--device", "cuda"],
+                                    cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for name, script, extra in (("demo", "examples/demo_torch.py", [str(demo_dir)]),
+                                         ("streaming", "examples/streaming_demo_torch.py", []))}
+    try:
+        # (a) The parity CLI on the card against the goldens the JAX CLI wrote.
+        inputs = parity_inputs.write_parity_inputs(work / "parity")
+        report_path = work / "parity_report.json"
+        feature_launches = []
+        check_features = parity._check_features
+
+        def counted(*a, **k):
+            before = fbank_cuda.launches
+            try:
+                return check_features(*a, **k)
+            finally:
+                feature_launches.append(fbank_cuda.launches - before)
+
+        parity._check_features = counted
+        fbank_cuda.launches = 0
+        try:
+            with contextlib.redirect_stdout(io.StringIO()) as text:
+                rc = parity.main(inputs.argv(PARITY_GOLDENS) + [
+                    "--device", "cuda", "--prob_atol", str(PARITY_PROB_ATOL),
+                    "--out", str(report_path)])
+            torch.cuda.synchronize()
+        finally:
+            parity._check_features = check_features
+        run_launches = fbank_cuda.launches
+        report = json.loads(report_path.read_text())
+        check(rc == 0 and report["n_pass"] == 5 and report["n_skipped"] == 0,
+              f"parity CLI: rc {rc}, {report['n_pass']} pass, {report['n_skipped']} skipped: "
+              f"{text.getvalue()[-3000:]}")
+        n_files = len(parity_inputs.CHANNELS)
+        buckets = -(-int(parity_inputs.SECONDS * 100) // 1024)  # the goldens' bucket
+        # features one launch a file; probs and textgrids one a bucket a file;
+        # the sweep one a bucket batch of the meeting plus its warm-up.
+        want = n_files + 2 * n_files * buckets + buckets + 1
+        check(feature_launches == [n_files] and run_launches == want,
+              f"parity CLI: fbank launches {feature_launches} in the features check (want "
+              f"{n_files}), {run_launches} in the run (want {want})")
+        rows = [("features", "max_abs_diff", "atol"), ("probs", "max_abs_diff", "atol"),
+                ("textgrids", "max_boundary_diff_s", "tol_s"),
+                ("analyse", "max_metric_diff", "atol"), ("loss_curve", "max_loss_diff", "atol")]
+        for name, diff, tol in rows:
+            r = report["configs"][name]
+            print(f"  parity {name}: {r['status']}, {diff} {r[diff]:.3e} (limit {r[tol]:g})")
+        pipe = inference.LaughterPipeline(
+            parity._load_model(parity.build_parser().parse_args(inputs.argv(PARITY_GOLDENS))),
+            settings=inference.settings_from_flags(device="cuda", precision="float32"),
+            device="cuda")
+        card_probs = [pipe.probs_for_file(str(inputs.audio_dir / parity_inputs.MEETING
+                                              / f"{chan}.wav"))[0]
+                      for chan in parity_inputs.CHANNELS]
+        margin = parity_inputs.check_margin(card_probs)
+        print(f"parity CLI on {card} against the JAX goldens: 5 pass, 0 skipped; the smallest "
+              f"margin of a card probability to a grid threshold {margin:.3e} (limit "
+              f"{parity_inputs.MARGIN:g}); fbank launches: features {feature_launches[0]} "
+              f"({n_files} files), the run {run_launches}")
+
+        # (c) laughs_to_wav on phase 4's TextGrid and audio.
+        grid = work / "out" / f"t_{ctx['thr']}" / "l_0.2" / "meeting.TextGrid"
+        intervals = textgrid.read_laughter_intervals(str(grid))
+        cut = work / "laughs"
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = laughs_to_wav.main(["--textgrid", str(grid), "--audio_file", str(ctx["wav"]),
+                                     "--output_dir", str(cut), "--concat"])
+        check(rc == 0 and intervals, f"laughs_to_wav: rc {rc}, {len(intervals)} intervals")
+        lengths = []
+        for i, (start, end) in enumerate(intervals):
+            want_wave, _ = audio.read(str(ctx["wav"]), offset=start, duration=end - start)
+            got, _ = audio.read_int16(str(cut / f"laugh_{i}_{start:.2f}-{end:.2f}.wav"))
+            check(np.array_equal(got, (np.clip(want_wave, -1, 1) * 32767).astype(np.int16)),
+                  f"laughs_to_wav: piece {i} ({start}-{end} s) is not its interval")
+            lengths.append(len(got))
+        concat, _ = audio.read_int16(str(cut / "all_laughs.wav"))
+        gap = int(0.5 * 16000)
+        check(len(concat) == sum(lengths) + gap * (len(lengths) - 1)
+              and not concat[lengths[0]:lengths[0] + gap].any(),
+              f"laughs_to_wav --concat: {len(concat)} samples for pieces {lengths}")
+        print(f"laughs_to_wav: {len(intervals)} pieces equal to their intervals, all_laughs.wav "
+              f"with {len(intervals) - 1} gaps of 0.5 s")
+
+        # (d) probe_audio_loading on a shorten channel of phase 8's corpus.
+        shn = ctx["corpus"][2]["Bmr013"][0]
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            rc = probe_audio_loading.main([shn, "--offsets", "0,10", "--duration", "5"])
+        probed = text.getvalue().splitlines()
+        check(rc == 0 and "shorten" in probed[0] and "decoder native" in probed[0],
+              f"probe_audio_loading: rc {rc}: {probed}")
+        print(f"probe_audio_loading: {' | '.join(probed)}")
+
+        # (b) The demos' results.
+        outs = {}
+        for name, proc in demos.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            check(proc.returncode == 0, f"examples {name}: rc {proc.returncode}: {stderr[-3000:]}")
+            outs[name] = stdout
+        grids = sorted(demo_dir.glob("preds/dev/*/t_0.3/l_0.2/*.TextGrid"))
+        check(len(grids) == 2 and "corpus-weighted evaluation:" in outs["demo"]
+              and (demo_dir / "preds" / "dev_sum_stats.csv").is_file(),
+              f"demo: {len(grids)} TextGrids; stdout ends {outs['demo'][-1500:]}")
+        check("bit-identical to the offline pipeline" in outs["streaming"],
+              f"streaming demo: {outs['streaming'][-1500:]}")
+        featurized = int(re.search(r"\((\d+) fbank kernel launches\)", outs["demo"]).group(1))
+        classified = int(re.search(r"inference: (\d+) fbank kernel launches", outs["demo"]).group(1))
+        streamed = int(re.search(r"(\d+) fbank kernel launches\)", outs["streaming"]).group(1))
+        check(featurized == 4 and classified == 2 * -(-10000 // 1024) and streamed >= 5,
+              f"demos: fbank launches {featurized} featurizing 4 tracks, {classified} "
+              f"classifying 2 x 100 s, {streamed} streaming 45 s")
+        for name in demos:
+            print(f"  {name}: " + " | ".join(ln for ln in outs[name].splitlines()
+                                             if "launches" in ln or "bit-identical" in ln))
+    finally:
+        for proc in demos.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    print(f"phase 16 in {time.perf_counter() - t0:.1f} s on {card}")
+    return {"parity_features": feature_launches[0], "parity_run": run_launches,
+            "demo_features": featurized, "demo_inference": classified,
+            "streaming_demo": streamed}
+
+
 def worker_main(task: str, spec_path: str, rank: int) -> int:
     """One process of a phase-14 group: ``chip_smoke.py --worker TASK
     SPEC.json RANK``.  Tasks: ``dp`` (phase 14 (b): the recorded steps, the
@@ -3094,6 +3274,8 @@ def main() -> int:
         multi = phase_multiprocess(card, work, ctx)
         header("15. the bench")
         benched = phase_bench(card)
+        header("16. parity, demos and tools")
+        tools = phase_parity(card, work, ctx)
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -3109,7 +3291,7 @@ def main() -> int:
                **bf16, "e2e_artifact": artifact,
                **{f"multiprocess_sweep_rank{r}": n for r, n in enumerate(multi["sweep"])},
                **{f"multiprocess_train_features_rank{r}": n for r, n in enumerate(multi["train"])},
-               "bench_profiled_windows_call": benched["launches"]}
+               "bench_profiled_windows_call": benched["launches"], **tools}
     print(f"fbank launches per path: windows {ctx['launches']} ({ctx['n_buckets']} buckets), "
           f"fused_conv {fused} (one file), serve replay {streamed} ({ctx['n_buckets']} buckets "
           f"+ warm-up), multichannel {batched} (bucket batches of 4 channels), corpus sweep "
@@ -3121,7 +3303,10 @@ def main() -> int:
           f"two processes: the sweep {multi['sweep']} by rank (each its 2 channels' bucket "
           f"batches + a warm-up), cli/train's featurization {multi['train']} by rank (rank 0 "
           f"first, rank 1 after the barrier); the bench's profiled windows call "
-          f"{benched['launches']} (its stderr's breakdown)")
+          f"{benched['launches']} (its stderr's breakdown); the parity CLI's features check "
+          f"{tools['parity_features']} (one a file) and its whole run {tools['parity_run']}; "
+          f"the demo {tools['demo_features']} featurizing and {tools['demo_inference']} "
+          f"classifying, the streaming demo {tools['streaming_demo']}")
     entry["max_abs_err"] = max(entry["max_abs_err"], swept["max_err"], featurized["max_err"])
     entry = {"name": entry.pop("name"), "route": entry.pop("route"),
              "source": entry.pop("source"), "replaces": entry.pop("replaces"),
