@@ -52,7 +52,17 @@ Phases (any failure exits non-zero and prints no result):
    equal to the offline batch bit for bit, ``serve --channels 4`` over
    stdin (20 s, a subprocess) emitting every channel's offline events;
    audio-seconds per wall-second, peak memory, the device breakdown; the
-   peak memory of 9 channels of 20 s;
+   peak memory of 9 channels of 20 s; then several shards in one process
+   (``ShardedPipeline(devices=...)``): (a) two shards of card 0
+   (``cuda:0,cuda:0``), float32 and bfloat16 rows bit-equal to one
+   shard's, one fbank launch per shard per bucket batch, the streaming
+   session equal to the one-shard batch, ``serve --channels 4 --device
+   cuda:0,cuda:0`` (in this process) giving one shard's events, and one
+   bucket batch's host syncs under ``torch.cuda.set_sync_debug_mode`` (its
+   body must have none); (b) with more than one card visible, the same
+   over every card (``mesh.local_devices('cuda')``) with rows within 1e-6,
+   the card count and the aggregate rate beside one card's; with one card
+   it prints that (b) did not run;
 8. corpus sweep — a synthetic ICSI-layout corpus written under
    build/chip_smoke (preambles and four meetings with laugh, speech,
    noise and invalid segments at known times; Bmr021 4 x 600 s, one
@@ -211,6 +221,10 @@ Phases (any failure exits non-zero and prints no result):
    every path, the bf16 paths', the e2e artifact's, each rank's of phase 14,
    the bench's profiled call and phase 16's paths included, beside them),
    then the result line.
+
+``python3 chip_smoke.py --through 7`` runs phases 1-7 alone and prints
+no result line: phase 7 (b) on a host of several cards, where phases 8
+on count launches for one card.
 
 Phases 4-10 and 14 compare float32 numbers and pass ``precision='float32'`` (or
 ``--precision float32``) explicitly: the card's default is bf16.  Phase 16's
@@ -908,6 +922,7 @@ def phase_multichannel(card, work: Path, ctx: dict) -> int:
     m = n - 777  # a live meeting's channels advance together
     equal = [w[:m] for w in chans]
     want = spipe.probs_for_waveforms(equal)
+    ctx["mc_equal_rows"] = want
     sess = ShardedStreamingSession(spipe, n_channels=4)
     outs = [sess.feed([w[lo : lo + 4000] for w in equal]) for lo in range(0, m, 4000)]
     full = np.concatenate(outs + [sess.finish()], axis=1)
@@ -964,7 +979,211 @@ def phase_multichannel(card, work: Path, ctx: dict) -> int:
         check(got == want[c], f"serve channel {c}: events {got[:3]}... != offline {want[c][:3]}...")
     print(f"serve --channels 4 over stdin (20 s, a subprocess): every channel's events equal its "
           f"offline events ({', '.join(str(len(w)) for w in want)} events)")
+    ctx["mc_shard_launches"] = local_shards(card, ctx, chans, rows, equal, seg, thr, want)
     return launches
+
+
+def serve_in_process(argv, pcm: bytes) -> list:
+    """``cli/serve.main(argv)`` in this process on ``pcm`` as its stdin:
+    the NDJSON lines it writes."""
+    import contextlib
+    import io
+    import types
+
+    from laughter_detection_icsi_tpu_torch.cli import serve
+
+    out, stdin = io.StringIO(), sys.stdin
+    sys.stdin = types.SimpleNamespace(buffer=io.BytesIO(pcm))
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = serve.main(argv)
+    finally:
+        sys.stdin = stdin
+    check(rc == 0, f"serve {' '.join(argv)} returned {rc}")
+    return [json.loads(line) for line in out.getvalue().splitlines()]
+
+
+def shard_run(card, ctx, devices, chans, rows, equal, seg, thr, want, atol: float, what: str):
+    """One shard list through phase 7's multichannel paths: float32 and
+    bfloat16 rows against the one-shard rows (``rows``, and a one-shard
+    bf16 run here) within ``atol`` (0: bit-equal), one fbank launch per
+    shard per bucket batch, the streaming session against the one-shard
+    offline batch of ``equal``, and ``serve --channels 4`` in this process
+    against the one-shard events ``want`` of ``seg``.  Returns (launches
+    of the float32 batch, its best wall of 3, the pipeline)."""
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep, inference
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda
+    from laughter_detection_icsi_tpu_torch.parallel import (
+        ShardedPipeline, ShardedStreamingSession)
+
+    sync_all = lambda: [torch.cuda.synchronize(d) for d in set(devices)]
+    diff = lambda a, b: max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    f32 = inference.settings_from_flags(device="cuda", precision="float32")
+    spipe = ShardedPipeline(ctx["model"], settings=f32, devices=devices)
+    spipe.probs_for_waveforms(chans)  # every shard's cuDNN choices, off the count
+    sync_all()
+    fbank_cuda.launches = 0
+    got = spipe.probs_for_waveforms(chans)
+    sync_all()
+    launches = fbank_cuda.launches
+    padded, ts = zip(*(host_prep.host_pad_waveform(w) for w in chans))
+    n_batches = len(list(spipe.bucket_batches(padded, ts, int16_in=True)))
+    check(launches == n_batches * len(devices),
+          f"{what}: {launches} fbank launches for {n_batches} bucket batches x {len(devices)} shards")
+    d32 = diff(got, rows)
+    check(d32 <= atol if atol else all(np.array_equal(a, b) for a, b in zip(got, rows)),
+          f"{what}: float32 rows differ from one shard's by {d32:.3e} (limit {atol or 'equal'})")
+    took = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        spipe.probs_for_waveforms(chans)
+        took.append(time.perf_counter() - t0)
+    bf16 = inference.settings_from_flags(device="cuda")
+    one16 = ShardedPipeline(ctx["model"], device=devices[0], settings=bf16)
+    two16 = ShardedPipeline(ctx["model"], devices=devices, settings=bf16)
+    want16 = one16.probs_for_waveforms(chans)
+    two16.probs_for_waveforms(chans)  # warm
+    got16 = two16.probs_for_waveforms(chans)
+    d16 = diff(got16, want16)
+    check(bf16.precision == "bfloat16" and (d16 <= atol if atol else all(
+        np.array_equal(a, b) for a, b in zip(got16, want16))),
+          f"{what}: bfloat16 rows differ from one shard's by {d16:.3e} (limit {atol or 'equal'})")
+    print(f"{what} ({', '.join(map(str, devices))}): {launches} fbank launches for {n_batches} "
+          f"bucket batches x {len(devices)} shards; rows vs one shard max |diff| float32 "
+          f"{d32:.3e}, bfloat16 {d16:.3e} (limit {atol or 'bit-equal'})")
+
+    m = len(equal[0])
+    offline = spipe.probs_for_waveforms(equal) if atol else None
+    sess = ShardedStreamingSession(spipe, n_channels=len(equal))
+    outs = [sess.feed([w[lo : lo + 4000] for w in equal]) for lo in range(0, m, 4000)]
+    full = np.concatenate(outs + [sess.finish()], axis=1)
+    ref = ctx["mc_equal_rows"]
+    ds = max(float(np.abs(a - b).max()) for a, b in zip(full, ref))
+    check(full.shape == (len(equal), len(ref[0])) and (ds <= atol if atol else ds == 0.0),
+          f"{what}: the streaming session differs from the one-shard batch by {ds:.3e}")
+    if offline is not None:
+        check(all(np.array_equal(a, b) for a, b in zip(full, offline)),
+              f"{what}: the streaming session differs from its own offline batch")
+    lines = serve_in_process(
+        ["--model_path", ctx["ckpt"], "--channels", str(len(seg)), "--threshold", str(thr),
+         "--min_length", "0.2", "--device", ",".join(map(str, devices)),
+         "--precision", "float32"],
+        np.stack(seg, axis=1).astype("<i2").tobytes())
+    check(lines[0]["type"] == "ready" and lines[0]["devices"] == [str(d) for d in devices],
+          f"{what}: serve's ready line {lines[0]}")
+    for c in range(len(seg)):
+        events = [(e["start"], e["end"]) for e in lines
+                  if e["type"] == "event" and e["channel"] == c]
+        check(events == want[c], f"{what}: serve channel {c}: events {events[:3]}... != one "
+              f"shard's {want[c][:3]}...")
+    print(f"{what}: ShardedStreamingSession (250 ms feeds) vs the one-shard batch max |diff| "
+          f"{ds:.3e}; serve --channels {len(seg)} --device {','.join(map(str, devices))} (in "
+          f"this process) gives one shard's events")
+    return launches, min(took), spipe
+
+
+def local_shards(card, ctx, chans, rows, equal, seg, thr, want) -> int:
+    """Phase 7 over several shards in one process: (a) two shards of card 0
+    bit-equal to one shard, with the host syncs of one bucket batch
+    named; (b) every visible card, rows within 1e-6, the aggregate rate
+    beside one card's.  Returns (a)'s fbank launches."""
+    import warnings
+
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda
+    from laughter_detection_icsi_tpu_torch.parallel import mesh
+
+    audio_s = sum(len(w) for w in chans) / 16000
+    two = [torch.device("cuda", 0)] * 2
+    launches, took, spipe = shard_run(card, ctx, two, chans, rows, equal, seg, thr, want, 0.0,
+                                      "(a) two shards of one card")
+    padded, ts = zip(*(host_prep.host_pad_waveform(w) for w in chans))
+    batch, valid, _ = next(spipe.bucket_batches(padded, ts, int16_in=True))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the mode's own "prototype" note
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            probs = spipe._bucket_probs_batch(batch, valid)
+            n_body = len(caught)
+            probs.cpu()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught]
+    check(n_body == 0, f"(a) one bucket batch's body synchronizes the host: {syncs[:n_body]}")
+    print(f"(a) host syncs under torch.cuda.set_sync_debug_mode('warn'): one bucket batch of "
+          f"{len(batch)} rows over 2 shards {n_body} (uploads pinned and non-blocking, no read "
+          f"back); its read-back {len(syncs) - n_body} ({'; '.join(syncs[n_body:]) or 'none'})")
+    print(f"(a) {audio_s:.3f} audio-s in {took:.4f} s on two shards of {card}: "
+          f"{audio_s / took:.1f} audio-s per wall-s (best of 3) against one shard's "
+          f"{ctx['mc_rate']:.1f}")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"(b) did not run: {n_cards} card visible, so there is no second card to shard "
+              f"over (not a pass)")
+        return launches
+    cards = mesh.local_devices("cuda")
+    check(len(cards) == n_cards, f"(b) local_devices('cuda') gave {cards} for {n_cards} cards")
+    _, took_n, _ = shard_run(card, ctx, cards, chans, rows, equal, seg, thr, want, 1e-6,
+                             f"(b) every card ({n_cards})")
+    info = fbank_cuda.kernel_constants.cache_info()
+    print(f"(b) {n_cards} cards: {audio_s:.3f} audio-s in {took_n:.4f} s, {audio_s / took_n:.1f} "
+          f"audio-s per wall-s (best of 3) against one card's {ctx['mc_rate']:.1f} "
+          f"({audio_s / took_n / ctx['mc_rate']:.3f}x; 4 channels, one a card or fewer); "
+          f"kernel_constants cache {info.currsize} entries, {info.misses} misses")
+    sweep_over_cards(ctx, n_cards)
+    return launches
+
+
+def sweep_over_cards(ctx, n_cards: int) -> None:
+    """(b): ``cli/sweep`` with ``--device cuda`` on a small corpus (Bmr021
+    4 x 60 s, Bns001 3 x 30 s) splits each meeting over every card and
+    writes the TextGrids of ``--device cuda:0``, byte for byte; the
+    bench's ``--sharded`` pipeline holds every card."""
+    import contextlib
+    import filecmp
+    import io
+
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import bench
+    from laughter_detection_icsi_tpu_torch.cli import sweep
+
+    root = Path(ctx["work"]) / "cards"
+    corpus = (("Bmr021", 4, 60, "pcm"), ("Bns001", 3, 30, "pcm"))
+    tdir, adir, _ = write_sweep_corpus(root / "corpus", root / "cache", corpus)
+    audio_s = sum(n * secs for _, n, secs, _ in corpus) - 777 / 16000
+    outs, walls = {}, {}
+    for dev in ("cuda", "cuda:0"):
+        out, text = root / dev.replace(":", "_"), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = sweep.main(["--audio_dir", str(adir), "--transcript_dir", str(tdir),
+                             "--output_dir", str(out), "--split", "all", "--model_path",
+                             ctx["ckpt"], "--device", dev, "--precision", "float32"])
+        walls[dev] = time.perf_counter() - t0
+        want = n_cards if dev == "cuda" else 1
+        check(rc == 0 and f"shards: {want} " in text.getvalue(),
+              f"(b) sweep --device {dev}: rc {rc}, {text.getvalue()[-400:]}")
+        outs[dev] = out / "all"
+    a, b = outs["cuda"], outs["cuda:0"]
+    grids = sorted(q.relative_to(a) for q in a.rglob("*.TextGrid"))
+    check(bool(grids) and grids == sorted(q.relative_to(b) for q in b.rglob("*.TextGrid"))
+          and all(filecmp.cmp(a / g, b / g, shallow=False) for g in grids),
+          "(b) sweep --device cuda: TextGrids differ from --device cuda:0's")
+    n_bench = bench.build_pipeline(torch.device("cuda"), sharded=True).n_shards
+    check(n_bench == n_cards, f"(b) bench --sharded's pipeline holds {n_bench} shards")
+    print(f"(b) sweep --device cuda over {n_cards} cards: {len(grids)} TextGrids byte-equal to "
+          f"--device cuda:0's ({walls['cuda']:.2f} s and {walls['cuda:0']:.2f} s for "
+          f"{audio_s:.3f} audio-s, model load and warm-up included); bench --sharded's "
+          f"pipeline: {n_bench} shards")
 
 
 #: The corpus phase 8 sweeps: (meeting, channels, seconds, encoding); 69.3
@@ -989,12 +1208,13 @@ def shorten_channel(path: str, n: int, seed: int) -> str:
     return path
 
 
-def write_sweep_corpus(root: Path, cache: Path):
+def write_sweep_corpus(root: Path, cache: Path, corpus=None):
     """An ICSI-layout corpus under ``root``: ``transcripts/preambles.mrt``
     and one ``<meeting>.mrt`` each, whose participants have, every 20 s, a
     pure laugh, speech, a noise, a laugh next to speech (invalid) and a
     0.1 s laugh (too short: invalid); ``audio/<meeting>/chanN.sph`` int16
-    audio, one Bmr021 channel 777 samples short.  The shorten channels are
+    audio, one Bmr021 channel 777 samples short; the meetings of
+    ``corpus`` (default ``SWEEP_CORPUS``).  The shorten channels are
     encoded in parallel processes into ``cache`` (keyed on the encoder's
     source, the length and the seed) unless already there, then copied.
     Returns (transcript dir, audio dir, {meeting: [paths]})."""
@@ -1013,7 +1233,7 @@ def write_sweep_corpus(root: Path, cache: Path):
     seg = lambda p, a, b, body: (
         f'    <Segment StartTime="{a}" EndTime="{b}" Participant="{p}">{body}</Segment>')
     preambles, paths = [], {}
-    for m, n_ch, secs, encoding in SWEEP_CORPUS:
+    for m, n_ch, secs, encoding in corpus or SWEEP_CORPUS:
         parts = [f"me{m[-3:]}{c}" for c in range(n_ch)]
         preambles.append(
             f'  <Meeting Session="{m}"><Preamble><Participants>'
@@ -3224,7 +3444,7 @@ def train_breakdown(what: str, step, trace_path: Path, steps: int = 5):
     return busy_us / 1e3 / wall_ms
 
 
-def main() -> int:
+def main(through: int = 17) -> int:
     try:
         import torch
     except ImportError as e:
@@ -3256,7 +3476,12 @@ def main() -> int:
         header("6. streaming and serve")
         streamed = phase_streaming(card, work, ctx)
         header("7. multichannel")
+        ctx["work"] = work
         batched = phase_multichannel(card, work, ctx)
+        if through == 7:
+            print(f"phases 1-7 passed in {time.perf_counter() - t_start:.1f} s (--through 7: "
+                  f"no result line)")
+            return 0
         header("8. corpus sweep")
         ctx["cache"] = work.parent / "cache"
         swept = phase_sweep(card, work, ctx)
@@ -3285,7 +3510,8 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     by_path = {"windows": ctx["launches"], "fused_conv": fused, "serve": streamed,
-               "multichannel": batched, "sweep": swept["launches"],
+               "multichannel": batched, "multichannel_two_shards": ctx["mc_shard_launches"],
+               "sweep": swept["launches"],
                "sweep_packed": swept["packed"], "sweep_fused_conv": swept["fused"],
                "training_features": trained, "compute_features": featurized["launches"],
                **bf16, "e2e_artifact": artifact,
@@ -3294,7 +3520,8 @@ def main() -> int:
                "bench_profiled_windows_call": benched["launches"], **tools}
     print(f"fbank launches per path: windows {ctx['launches']} ({ctx['n_buckets']} buckets), "
           f"fused_conv {fused} (one file), serve replay {streamed} ({ctx['n_buckets']} buckets "
-          f"+ warm-up), multichannel {batched} (bucket batches of 4 channels), corpus sweep "
+          f"+ warm-up), multichannel {batched} (bucket batches of 4 channels) and "
+          f"{ctx['mc_shard_launches']} on two shards of the card, corpus sweep "
           f"{swept['launches']} (raw), {swept['packed']} (packed), {swept['fused']} (fused_conv), "
           f"training features {trained}, compute_features {featurized['launches']} (30,000-frame "
           f"buckets); bf16: windows {bf16['windows_bf16']}, fused_conv {bf16['fused_conv_bf16']}, "
@@ -3322,4 +3549,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:  # one process of phase 14's groups
         sys.exit(worker_main(sys.argv[2], sys.argv[3], int(sys.argv[4])))
+    if sys.argv[1:] == ["--through", "7"]:  # phases 1-7: phase 7 (b) on a several-card host
+        sys.exit(main(through=7))
+    if sys.argv[1:]:
+        sys.exit(f"usage: {sys.argv[0]} [--through 7]")
     sys.exit(main())

@@ -273,15 +273,19 @@ def inference_settings(device):
 
 
 def build_pipeline(device, model=None, sharded: bool = False):
-    """The default mode's pipeline (``sharded``: the ``--sharded`` mode's
-    ``ShardedPipeline``) on ``device``, over ``model`` (default
-    ``build_model(0.0)``)."""
+    """The default mode's pipeline on ``device``, over ``model`` (default
+    ``build_model(0.0)``); ``sharded``: the ``--sharded`` mode's
+    ``ShardedPipeline`` over every device ``device`` stands for
+    (``mesh.local_devices``: every visible card for ``cuda``, as the JAX
+    bench's ``make_mesh()``)."""
     from laughter_detection_icsi_tpu_torch.inference import LaughterPipeline
-    from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline
+    from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline, mesh
 
-    cls = ShardedPipeline if sharded else LaughterPipeline
     model = build_model(0.0) if model is None else model
-    return cls(model, settings=inference_settings(device), device=device)
+    settings = inference_settings(device)
+    if sharded:
+        return ShardedPipeline(model, settings=settings, devices=mesh.local_devices(str(device)))
+    return LaughterPipeline(model, settings=settings, device=device)
 
 
 def _sync(device) -> None:
@@ -534,10 +538,11 @@ def _device_metrics(pipe, audio_seconds: int) -> dict:
 
 
 def bench_sharded(device) -> dict:
-    """C synthetic channels through ``ShardedPipeline`` (one process, one
-    device): the aggregate x realtime (channel audio seconds per wall
-    second) and the per-channel one, the device decomposition over the
-    pipeline's own bucket plan, then the best-of-N refinement."""
+    """C synthetic channels through ``ShardedPipeline`` (one process, every
+    visible card on ``cuda``: ``mesh_devices`` of them): the aggregate x
+    realtime (channel audio seconds per wall second) and the per-channel
+    one, the device decomposition over the pipeline's own bucket plan,
+    then the best-of-N refinement."""
     _set_phase("backend_init")
     on_card = device.type == "cuda"
     pipe = build_pipeline(device, sharded=True)
@@ -609,7 +614,7 @@ def _sharded_device_metrics(pipe, n_channels: int, channel_seconds: int) -> dict
 
     from laughter_detection_icsi_tpu_torch import host_prep
     from laughter_detection_icsi_tpu_torch.inference import (
-        fused_conv_probs, precision_scope, scale_pcm, track_wave_len)
+        precision_scope, scale_pcm, track_wave_len)
     from laughter_detection_icsi_tpu_torch.utils.timing import hard_block
 
     device, s = pipe.device, pipe.settings
@@ -622,19 +627,20 @@ def _sharded_device_metrics(pipe, n_channels: int, channel_seconds: int) -> dict
         total = max(s.bucket_frames, -(-t_frames // s.bucket_frames) * s.bucket_frames)
         wave_len = track_wave_len(total, pipe.feat_cfg)
         fsets = []
+        # Silent rows pad the batch to a multiple of the shard count.
+        c_pad = -(-n_channels // pipe.n_shards) * pipe.n_shards
         for set_i in range(5):
-            batch = np.zeros((n_channels, wave_len), dtype=np.int16)
+            batch = np.zeros((c_pad, wave_len), dtype=np.int16)
             for r in range(n_channels):
                 padded, t = host_prep.host_pad_waveform(
                     speech_like_pcm(channel_seconds, seed=970 + set_i * 16 + r), pipe.feat_cfg)
                 batch[r, : len(padded)] = padded
-            fsets.append(torch.from_numpy(batch).to(device))
-        valid = [t_frames] * n_channels
+            fsets.append(pipe.shard_rows(batch))
+        valid = [t_frames] * n_channels + [0] * (c_pad - n_channels)
         hard_block(fsets)
 
         def fused_pass(i: int):
-            return fused_conv_probs(pipe.model, fsets[i], valid, pipe.feat_cfg, s.window, device,
-                                    s.precision)[:, :t_frames]
+            return pipe.fused_batch_body(fsets[i], valid)[:, :t_frames]
 
         hard_block(fused_pass(0))  # warm, off the clock
         if _remaining() > 25.0:
@@ -658,7 +664,7 @@ def _sharded_device_metrics(pipe, n_channels: int, channel_seconds: int) -> dict
                 speech_like_pcm(channel_seconds, seed=900 + set_i * 16 + ch), pipe.feat_cfg)
             padded_list.append(padded)
             ts.append(t)
-        return [(torch.from_numpy(batch).to(device), valid)
+        return [(pipe.shard_rows(batch), valid)
                 for batch, valid, _k in pipe.bucket_batches(padded_list, ts, int16_in=True)]
 
     sets = [build_set(i) for i in range(5)]  # warm-up + n_lo=1 + n_hi=3
@@ -666,7 +672,7 @@ def _sharded_device_metrics(pipe, n_channels: int, channel_seconds: int) -> dict
 
     def device_pass(i: int):
         with torch.inference_mode(), precision_scope(s.precision):
-            return [pipe.bucket_batch_body(scale_pcm(d), v) for d, v in sets[i]]
+            return [pipe.bucket_batch_body([scale_pcm(x) for x in d], v) for d, v in sets[i]]
 
     hard_block(device_pass(0))  # warm, off the clock
     if _remaining() > 30.0:

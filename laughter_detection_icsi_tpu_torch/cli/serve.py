@@ -3,8 +3,11 @@ NDJSON events out.
 
 The same flags as the JAX package's ``cli/serve.py``, plus ``--device``
 (default ``cuda``).  The front end over ``inference.StreamingSession`` (one
-stream) and ``parallel.sharded_inference.ShardedStreamingSession`` (a live
-meeting's channels as one batch on the device): feed 16 kHz PCM in chunks
+stream, on one device) and ``parallel.sharded_inference.
+ShardedStreamingSession`` (a live meeting's channels as one batch, split
+over every device ``--device`` names: ``cuda`` is every visible card, as
+JAX's ``make_mesh()``; ``cuda:0`` pins one; ``cuda:0,cuda:0`` runs two
+shards on one card; ``cpu``, or ``cpu,cpu``, the CPU): feed 16 kHz PCM in chunks
 of any size, get one JSON line the moment a laughter run closes.  The
 probabilities equal the offline pipeline's on the concatenated audio bit
 for bit, so the events equal ``segment_laughter``'s.
@@ -69,7 +72,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the full [channels, T] probability array "
                         "(.npy) at end of stream")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on (default: cuda)")
+                   help="where to run: 'cuda' (default) splits --channels over "
+                        "every visible card, 'cuda:K' pins one, a comma list "
+                        "('cuda:0,cuda:1', 'cuda:0,cuda:0', 'cpu,cpu') names "
+                        "the shards; one stream runs on the first")
     return p
 
 
@@ -109,15 +115,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     from laughter_detection_icsi_tpu_torch.config import FEAT, MODEL_MAP
     from laughter_detection_icsi_tpu_torch.models import zoo
     from laughter_detection_icsi_tpu_torch.ops.smoothing import StreamingEventDetector
+    from laughter_detection_icsi_tpu_torch.parallel import mesh
     from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
 
     if args.config not in MODEL_MAP:
         raise SystemExit(
             f"--config: unknown preset {args.config!r} (choose from {sorted(MODEL_MAP)})"
         )
+    try:
+        devices = mesh.local_devices(args.device)
+    except ValueError as e:
+        raise SystemExit(str(e))
     settings = inference.settings_from_flags(
         chunk=args.chunk, bucket_frames=args.bucket_frames,
-        precision=args.precision, device=args.device,
+        precision=args.precision, device=devices[0],
     )
     preset = MODEL_MAP[args.config]
     model = zoo.build(preset.model, dropout_rate=0.0,
@@ -149,7 +160,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         if duration > 0:
             fps = host_prep.num_frames(len(wave)) / duration
     if n_ch == 1:
-        pipe = inference.LaughterPipeline(model, settings=settings, device=args.device)
+        devices = devices[:1]
+        pipe = inference.LaughterPipeline(model, settings=settings, device=devices[0])
         sess = inference.StreamingSession(pipe)
         feed = lambda chunks: sess.feed(chunks[0])
         finish = sess.finish
@@ -160,9 +172,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             ShardedStreamingSession,
         )
 
-        pipe = ShardedPipeline(model, settings=settings, device=args.device)
+        pipe = ShardedPipeline(model, settings=settings, devices=devices)
         sharded = ShardedStreamingSession(pipe, n_channels=n_ch)
         feed, finish = sharded.feed, sharded.finish
+        # Every shard takes rows of the batch, so every card is warmed.
         warm_up = lambda w: pipe.probs_for_waveforms([w] * n_ch)
 
     detectors = [
@@ -198,7 +211,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                      dtype=np.int16 if wave is None else wave.dtype))
     _emit({"type": "ready", "channels": n_ch,
            "bucket_latency_s": settings.bucket_frames / 100.0,
-           "device": str(pipe.device)})
+           "device": str(pipe.device),
+           "devices": [str(d) for d in devices]})
 
     chunk_samples = max(1, args.chunk_ms * FEAT.sampling_rate // 1000)
     if args.input == "-":

@@ -13,7 +13,11 @@ scores the split (``eval/analyse.py``: no pandas, no lxml).  Run it as
         --output_dir out --split dev --model_path checkpoints/resnet_base \\
         --analyse [--transfer_codec packed] [--mode fused_conv]
 
-Several processes split every meeting's channels (the JAX CLI's
+``--device cuda`` (the default) splits every meeting's channels over
+every visible card in a lone process, as the JAX CLI's ``make_mesh()``
+does; ``--device cuda:0`` pins one card, and a comma list names the shards
+(``cuda:0,cuda:0`` runs two on one card).  Several processes split every
+meeting's channels (the JAX CLI's
 multi-host flags, ``parallel/distributed.py``): every process runs the same
 command with its own ``--process_id``; each decodes, classifies and writes
 the TextGrids of its block of channels, after the processes agree that
@@ -97,7 +101,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace_dir", type=str, default=None,
                    help="write a torch.profiler trace of the sweep here")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on (default: cuda)")
+                   help="where to run: 'cuda' (default) splits each meeting's "
+                        "channels over every visible card (under a process "
+                        "group, the process's own card), 'cuda:K' pins one, "
+                        "a comma list ('cuda:0,cuda:1', 'cpu,cpu') names the "
+                        "shards")
     # Multi-process (the flags of cli/train.py): every process runs the same
     # command; each decodes and uploads only its own channels of every
     # meeting and writes only their TextGrids.
@@ -125,7 +133,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from laughter_detection_icsi_tpu_torch.eval import transcript as transcript_lib
     from laughter_detection_icsi_tpu_torch.models import zoo
     from laughter_detection_icsi_tpu_torch.ops import smoothing
-    from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline
+    from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline, mesh
     from laughter_detection_icsi_tpu_torch.runtime import native
     from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
     from laughter_detection_icsi_tpu_torch.utils.profiling import ThroughputMeter, trace
@@ -167,11 +175,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"meetings={sorted(wanted) if wanted else 'all'}) — check that "
             f"the requested meetings belong to the requested split"
         )
+    try:
+        devices = mesh.local_devices(args.device)
+    except ValueError as e:
+        raise SystemExit(str(e))
     settings = inference.settings_from_flags(
         chunk=args.chunk,
         bucket_frames=args.bucket_frames,
         precision=args.precision,
-        device=args.device,
+        device=devices[0],
         mode=args.mode,
         transfer_codec=args.transfer_codec,
     )
@@ -185,7 +197,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if ckpt is None:
         raise SystemExit(f"Model checkpoint not found at {args.model_path}")
     model.load_state_dict(ckpt_lib.load_checkpoint(ckpt)["state_dict"], strict=True)
-    pipe = ShardedPipeline(model, settings=settings, device=args.device)
+    pipe = ShardedPipeline(model, settings=settings, devices=devices)
     on_card = pipe.device.type == "cuda"
 
     # Resolve every meeting's channel audio up front: the warm-up below must
@@ -225,7 +237,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     # Warm each distinct channel count off the clock: cuDNN picks its
     # algorithms on the first call of each shape, which would be billed to
-    # the first meeting's span.
+    # the first meeting's span.  Every shard takes rows of each batch, so
+    # every card warms.  The rows come back on the first card, so its
+    # synchronize waits for every card's work.
     warm_len = settings.bucket_frames * pipe.feat_cfg.frame_shift_samples
     for n_ch in sorted({len(paths) for _, _, paths in resolved if paths}):
         pipe.probs_for_waveforms_device([np.zeros(warm_len, np.int16)] * n_ch)
@@ -239,6 +253,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         print("audio decoder: numpy (the native library did not build; see the warning)")
 
+    print(f"shards: {pipe.n_shards} (this process: {', '.join(map(str, pipe.devices))})")
     out_root = Path(args.output_dir) / args.split
     meter = ThroughputMeter(n_chips=pipe.n_shards)
     total_audio_s = 0.0

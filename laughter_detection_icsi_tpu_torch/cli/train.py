@@ -104,7 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_parallel", action="store_true",
                    help="data-parallel training over the processes of the "
                         "run (one device each; BatchNorm over the global "
-                        "batch); required with several processes")
+                        "batch); required with several processes.  A host's "
+                        "several cards train under torchrun, one process a "
+                        "card (torchrun --nproc_per_node N ... --distributed); "
+                        "one process trains on one device")
     p.add_argument("--transfer_dtype", type=str, default=None, choices=["bfloat16"],
                    help="ship feature batches to the device as bfloat16 (half "
                         "the host->device bytes; inputs are bf16-rounded, "

@@ -191,11 +191,19 @@ def scale_pcm(wave: torch.Tensor) -> torch.Tensor:
     return wave
 
 
-def upload_wave(buf: Union[np.ndarray, torch.Tensor], device: torch.device) -> torch.Tensor:
+def upload_wave(
+    buf: Union[np.ndarray, torch.Tensor], device: torch.device, pinned: bool = False
+) -> torch.Tensor:
     """One host buffer to the device as float32: int16 ships as int16 and
     is scaled by 1/32768 there (the same numbers as scaling on the host).
-    A tensor already on the device is only scaled."""
-    return scale_pcm(torch.as_tensor(buf).to(device))
+    A tensor already on the device is only scaled.  ``pinned``: a host
+    buffer bound for a card is staged in page-locked memory and copied
+    without blocking, so the host goes on queueing work (a pageable copy
+    waits for the device's stream)."""
+    t = torch.as_tensor(buf)
+    if pinned and device.type == "cuda" and t.device.type == "cpu":
+        return scale_pcm(t.pin_memory().to(device, non_blocking=True))
+    return scale_pcm(t.to(device))
 
 
 def upload_packed(
@@ -384,15 +392,18 @@ class LaughterPipeline:
             row[: len(wire)] = wire
         return wires, [p.delta for p in packs]
 
-    def _upload(self, buf: np.ndarray) -> torch.Tensor:
-        """A bucket buffer ([wave_len], or a [C, wave_len] batch) on the
-        device as float32 of its shape: raw, or as one packed upload
-        decoded there (the same numbers)."""
+    def _upload(self, buf: np.ndarray, device: Optional[torch.device] = None,
+                pinned: bool = False) -> torch.Tensor:
+        """A bucket buffer ([wave_len], or a [C, wave_len] batch) on
+        ``device`` (default the pipeline's) as float32 of its shape: raw
+        (``upload_wave``), or as one packed upload decoded there (the same
+        numbers)."""
+        device = self.device if device is None else device
         packed = self._maybe_pack(buf)
         if packed is None:
-            return upload_wave(buf, self.device)
+            return upload_wave(buf, device, pinned)
         wires, deltas = packed
-        return upload_packed(wires, buf.shape[-1], deltas, self.device).reshape(buf.shape)
+        return upload_packed(wires, buf.shape[-1], deltas, device).reshape(buf.shape)
 
     def _bucket_probs(self, buf: np.ndarray, valid: int) -> torch.Tensor:
         """One bucket buffer (``wave_len`` samples, int16 or float32) -> its

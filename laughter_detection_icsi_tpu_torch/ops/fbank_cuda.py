@@ -109,10 +109,13 @@ def frames_per_block() -> int:
     return _library().fbank_frames_per_block()
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)
 def kernel_constants(cfg: FeatConfig, device: torch.device):
     """(basis [kpad, 512], mel [256, n_mels], mel_range [n_mels, 2]) on
-    ``device``: the preprocessing-folded cos and sin bases with the Nyquist
+    ``device``, made once for each configuration and card (unbounded: a
+    process featurizes with two configurations, the buckets' and the
+    feature cache's, so 16 entries would fill at 8 cards and evict from
+    then on; an entry is ~0.9 MB): the preprocessing-folded cos and sin bases with the Nyquist
     bin dropped and their n8-tiles interleaved (columns 16j..16j+7 are cos
     bins 8j..8j+7, columns 16j+8..16j+15 sin bins 8j..8j+7, so re and im of
     a bin land in the same lane of the kernel's mma fragments), one float32

@@ -1,15 +1,18 @@
-"""Several processes, one device each: data-parallel training and
-multichannel inference with the channel axis split over the processes.
+"""Several devices and processes: data-parallel training (one device a
+process) and multichannel inference with the channel axis split over
+every local device of every process.
 
 The counterpart of the JAX package's ``parallel`` over a
 ``torch.distributed`` process group: parameters replicated, batch and
-channel rows in contiguous blocks in rank order (``mesh``), gradients and
+channel rows in contiguous blocks in shard order (``mesh``, whose
+``local_devices`` is the twin of ``make_mesh()``), gradients and
 BatchNorm statistics summed by ``all_reduce`` (``data_parallel``), and the
-process group's set-up, votes and resume broadcast (``distributed``).  In
-a run of one process every class here works on one device.
+process group's set-up, votes and resume broadcast (``distributed``).
 """
 
 from laughter_detection_icsi_tpu_torch.parallel.mesh import (  # noqa: F401
+    local_devices,
+    local_row_blocks,
     row_block,
     shard_batch,
     world,

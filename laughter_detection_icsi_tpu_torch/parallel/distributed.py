@@ -23,12 +23,13 @@ two sharing the card over Gloo.
 from __future__ import annotations
 
 import datetime
-import os
 import socket
 from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from laughter_detection_icsi_tpu_torch.parallel import mesh
 
 #: How long a collective waits for the other processes before it raises.
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
@@ -82,8 +83,7 @@ def initialize(
     dist.init_process_group(backend, init_method=init_method, timeout=timeout, **kwargs)
     rank = dist.get_rank()
     if dev.type == "cuda" and dev.index is None:
-        local_rank = int(os.environ.get("LOCAL_RANK", rank))
-        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+        dev = torch.device("cuda", mesh.own_card(rank, torch.cuda.device_count()))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     _cpu_group = None if backend == "gloo" else dist.new_group(backend="gloo", timeout=timeout)
@@ -155,6 +155,10 @@ def initialize_from_args(args, parser) -> bool:
         )
     if not (explicit or args.distributed):
         return False
+    if "," in getattr(args, "device", ""):
+        parser.error(
+            f"--device {args.device!r}: a device list is one process's shards; "
+            "under a process group each process drives its own device")
     initialize(
         coordinator_address=args.coordinator_address,
         num_processes=args.num_processes,

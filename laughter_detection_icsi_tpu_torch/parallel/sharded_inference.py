@@ -1,43 +1,54 @@
-"""Meeting-scale multichannel inference: a [C, n] channel batch, one device a process.
+"""Meeting-scale multichannel inference: a [C, n] channel batch split over shards.
 
 The port of the JAX package's ``parallel/sharded_inference.py``.  The JAX
-class shards the channel axis over a device mesh; here each process of a
-``torch.distributed`` group (or the one process) holds one device, given
-as ``device=`` in place of ``mesh=``, and the channel axis, padded with
-silent channels to a multiple of the process count, splits into
-contiguous blocks in rank order (``parallel.mesh.row_block``), as JAX's
-1-D mesh of one device a process places it.  Every process passes the same
-channel list; each decodes, uploads and classifies only its block, and
-postprocesses the rows :meth:`ShardedPipeline.local_channels` gives it.
-In a run of one process the block is every channel and nothing is padded.
-Per bucket, one fbank kernel launch featurizes every channel's
-[wave_len] buffer at once; the classifier then runs each channel as the
-single-channel pipeline runs its bucket (``inference.classify_bucket``, the
-JAX package's per-channel loop), so a row equals that channel run alone.
-A meeting's channels share a length, so a meeting is one batch; ragged
-batches mask each channel's frames past its own count.  Under the packed
-codec a bucket batch goes up as one [C, wire_len] upload of bit-packed
-rows, each decoded on the device (``LaughterPipeline._upload``).  In
-bfloat16 the batch runs on the pipeline's bf16 copy of the model, each row
-cast at the model boundary as a single channel's bucket is.
+class shards the channel axis over a 1-D device mesh (``make_mesh()``:
+every local chip).  Here the process drives a list of devices, given as
+``devices=`` (``parallel.mesh.local_devices`` turns a ``--device`` value
+into it) or one as ``device=``, and each process of a ``torch.distributed``
+group (or the one process) drives its own list.  The channel axis, padded
+with silent channels to a multiple of the shard count (processes x local
+devices), splits into contiguous blocks in shard order
+(``parallel.mesh.local_row_blocks``), as JAX's 1-D mesh places it.  Every
+process passes the same channel list; each decodes, uploads and
+classifies only its block, and postprocesses the rows
+:meth:`ShardedPipeline.local_channels` gives it.  In a run of one process
+the block is every channel.
+
+Per bucket batch, each shard takes its rows on its own device: one upload
+(pinned, without blocking the host), one fbank kernel launch over its rows'
+[wave_len] buffers, then each row classified as the single-channel
+pipeline classifies its bucket (``inference.classify_bucket``, the JAX
+package's per-channel loop), on the shard's copy of the model.  So a row
+equals that channel run alone, whatever the shard count, and the host
+queues every shard's batch before it reads any back.  The results are
+gathered onto the first device, one peer copy a shard.  A meeting's
+channels share a length, so a meeting is one batch; ragged batches mask
+each channel's frames past its own count.  Under the packed codec a
+shard's rows go up as one [rows, wire_len] upload of bit-packed rows, each
+decoded on the device (``LaughterPipeline._upload``).  In bfloat16 each
+shard runs a bf16 copy of the model, each row cast at the model boundary
+as a single channel's bucket is.
 
 Over several processes, the calls that hand every channel to one process
 (``probs_for_waveforms``, ``probs_for_meeting``) raise, as JAX's do, and
 ``ShardedStreamingSession`` raises: the JAX package has no multi-process
-session.
+session.  The session runs over every local device of one process.
 """
 
 from __future__ import annotations
 
+import copy
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from laughter_detection_icsi_tpu_torch import host_prep
+from laughter_detection_icsi_tpu_torch.config import FEAT, FeatConfig
 from laughter_detection_icsi_tpu_torch.data import audio as audio_io
 from laughter_detection_icsi_tpu_torch.inference import (
+    InferenceSettings,
     LaughterPipeline,
     _StreamingBase,
     check_pcm,
@@ -45,6 +56,7 @@ from laughter_detection_icsi_tpu_torch.inference import (
     fused_conv_probs,
     int16_transfer_eligible,
     precision_scope,
+    resolve_device,
     track_wave_len,
 )
 from laughter_detection_icsi_tpu_torch.ops.fbank_cuda import fbank_cuda
@@ -53,35 +65,71 @@ from laughter_detection_icsi_tpu_torch.runtime import native
 
 
 class ShardedPipeline(LaughterPipeline):
-    """Batched multichannel inference, the channel axis split over the
-    processes of the default group.  A :class:`LaughterPipeline` (its
-    single-channel methods included) that also takes a batch of
-    channels."""
+    """Batched multichannel inference, the channel axis split over this
+    process's devices and the processes of the default group.  A
+    :class:`LaughterPipeline` on the first device (its single-channel
+    methods included) that also takes a batch of channels.  ``devices``
+    lists the local shards (repeats allowed: two shards of one card);
+    ``device`` is one.  Every process of a group drives as many."""
 
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.rank, self.n_shards = mesh.world()
-        self._multi = self.n_shards > 1
+    def __init__(self, model: torch.nn.Module, feat_cfg: FeatConfig = FEAT,
+                 settings: InferenceSettings = InferenceSettings(),
+                 device: Union[None, str, torch.device] = None,
+                 devices: Optional[Sequence[Union[str, torch.device]]] = None):
+        if devices is not None and device is not None:
+            raise ValueError("pass device= (one) or devices= (the local shards), not both")
+        devices = [device] if devices is None else list(devices)
+        if not devices:
+            raise ValueError("devices= names no device")
+        self.devices = [resolve_device(d) for d in devices]
+        super().__init__(model, feat_cfg, settings, self.devices[0])
+        # One model a distinct device: the first is the pipeline's own;
+        # the others are copies (the caller's model stays where the
+        # pipeline put it), each the bf16 copy in bfloat16.
+        models = {self.device: self.model}
+        for d in self.devices[1:]:
+            if d not in models:
+                models[d] = copy.deepcopy(self.model).to(d)
+        self.shard_models = [models[d] for d in self.devices]
+        self.rank, self.world = mesh.world()
+        self.n_shards = self.world * len(self.devices)
+        self._multi = self.world > 1
 
     def _rows_slice(self, c: int) -> Tuple[int, int]:
         """[lo, hi) rows of ``c`` channels padded to a multiple of the
-        process count that this process builds and uploads: all of them in
+        shard count that this process builds and uploads: all of them in
         a run of one."""
-        return mesh.row_block(-(-c // self.n_shards) * self.n_shards, self.rank, self.n_shards)
+        blocks = mesh.local_row_blocks(
+            -(-c // self.n_shards) * self.n_shards, self.rank, self.world, len(self.devices))
+        return blocks[0][0], blocks[-1][1]
+
+    def _split(self, rows: int) -> List[Tuple[int, int]]:
+        """[lo, hi) of each local shard in a batch of this process's
+        ``rows`` rows."""
+        return [mesh.row_block(rows, j, len(self.devices)) for j in range(len(self.devices))]
 
     def local_channel_indices(self, c: int) -> List[int]:
         """The channels (of ``c``) this process owns: disjoint across the
         processes and together every channel once, the partition
-        multi-process postprocessing and writes key on."""
+        multi-process postprocessing and writes key on.  Padding rows are
+        never among them."""
         lo, hi = self._rows_slice(c)
         return list(range(lo, min(hi, c)))
 
     def local_channels(self, probs_dev: torch.Tensor, c: int):
         """[(channel, probs row)] for the channels of
         :meth:`local_channel_indices`, from the ``probs_dev`` of a
-        ``*_device`` call (this process's block of rows)."""
+        ``*_device`` call (this process's block of rows, on the first
+        device)."""
         lo, _ = self._rows_slice(c)
         return [(r, probs_dev[r - lo]) for r in self.local_channel_indices(c)]
+
+    def _gather(self, pieces: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Each local shard's rows, on its device -> this process's rows on
+        the first device: one peer copy a shard on another card."""
+        if len(pieces) == 1:
+            return pieces[0]
+        return torch.cat([p.to(self.device) for p in pieces])
 
     def _refuse_multi(self, what: str) -> None:
         if self._multi:
@@ -153,20 +201,18 @@ class ShardedPipeline(LaughterPipeline):
                 if padded_list[r] is not None:
                     batch[r - lo, : len(padded_list[r])] = padded_list[r]
                 valid[r - lo] = ts[r]
-            probs = fused_conv_probs(
-                self.model, batch, valid, self.feat_cfg, self.settings.window, self.device,
-                self.settings.precision,
-            )
             # Slice to [C, t_max]: the masked tail carries a fully-conv
             # bias-leak constant (~0.48 at init scale), not 0, and a device
             # consumer would smooth phantom laughter past the audio's end.
-            return probs[:, :t_max]
+            bufs = [batch[r0:r1] for r0, r1 in self._split(hi - lo)]
+            return self.fused_batch_body(bufs, valid)[:, :t_max]
         bucket = self.settings.bucket_frames
-        pieces = []
+        shards = [[] for _ in self.devices]
         for batch, valid, k in self.bucket_batches(padded_list, ts, int16_in):
-            probs = self._bucket_probs_batch(batch, valid)
-            pieces.append(probs[:, : min(bucket, t_max - k * bucket)])
-        return torch.cat(pieces, dim=1)
+            keep = min(bucket, t_max - k * bucket)
+            for acc, probs in zip(shards, self._shard_probs(batch, valid)):
+                acc.append(probs[:, :keep])
+        return self._gather([torch.cat(acc, dim=1) for acc in shards])
 
     def bucket_batches(self, padded_list, ts, int16_in: bool = False):
         """Yield the windows-mode bucket plan of this process's rows, one
@@ -190,27 +236,69 @@ class ShardedPipeline(LaughterPipeline):
                 valid[r - row_lo] = int(np.clip(ts[r] - k * bucket, 0, bucket + window - 1))
             yield batch, valid, k
 
+    def _shard_probs(self, batch: np.ndarray, valid: np.ndarray) -> List[torch.Tensor]:
+        """One bucket batch of this process's rows ([rows, wave_len]
+        buffers, each row's valid frames) -> each local shard's
+        [rows / shards, n_chunks * chunk] probabilities on its own device.
+        Every shard's rows are uploaded (pinned, without blocking), then
+        every shard's work queued; nothing is read back."""
+        with torch.inference_mode(), precision_scope(self.settings.precision):
+            waves = [self._upload(batch[a:b], d, pinned=True)
+                     for d, (a, b) in zip(self.devices, self._split(len(batch)))]
+            return self._shard_bodies(waves, valid)
+
     def _bucket_probs_batch(self, batch: np.ndarray, valid: np.ndarray) -> torch.Tensor:
         """One bucket batch ([C, wave_len] buffers, each channel's valid
-        frames) -> [C, n_chunks * chunk] device probabilities.  The one
-        bucket body: the offline loop and ShardedStreamingSession both run
-        through it.  One fbank launch for the batch; each row is then
-        classified as the single-channel pipeline classifies its bucket
-        (``classify_bucket``, at the same chunk), so a row equals that
-        channel run alone, and the activations live are one channel's."""
-        with torch.inference_mode(), precision_scope(self.settings.precision):
-            return self.bucket_batch_body(self._upload(batch), valid)
+        frames) -> [C, n_chunks * chunk] probabilities on the first device.
+        The one bucket body: the offline loop and ShardedStreamingSession
+        both run through it (``_shard_probs``, then one gather)."""
+        return self._gather(self._shard_probs(batch, valid))
 
-    def bucket_batch_body(self, waves: torch.Tensor, valid) -> torch.Tensor:
-        """A bucket batch's float32 waves on the device ([C, wave_len]) and
-        each channel's valid frames -> [C, n_chunks * chunk] probabilities:
-        the batch body of :meth:`_bucket_probs_batch`, as
+    def _shard_bodies(self, waves: Sequence[torch.Tensor], valid) -> List[torch.Tensor]:
+        """Each local shard's float32 waves on its device ([rows, wave_len])
+        and every row's valid frames -> each shard's [rows, n_chunks *
+        chunk] probabilities there: one fbank launch for a shard's rows,
+        then each row classified as the single-channel pipeline classifies
+        its bucket (``classify_bucket``, at the same chunk), so a row
+        equals that channel run alone, and the activations live are one
+        channel's."""
+        out = []
+        for model, w, (a, b) in zip(self.shard_models, waves, self._split(len(valid))):
+            feats = fbank_cuda(w, host_prep.snip_cfg(self.feat_cfg))
+            out.append(torch.stack([
+                classify_bucket(model, f, int(v), self.settings, self.shared_stem)
+                for f, v in zip(feats, valid[a:b])
+            ]))
+        return out
+
+    def bucket_batch_body(self, waves: Sequence[torch.Tensor], valid) -> torch.Tensor:
+        """Each local shard's float32 waves on its device (its rows of a
+        bucket batch, as :meth:`shard_rows` splits it) and every row's
+        valid frames -> [C, n_chunks * chunk] probabilities on the first
+        device: the batch body of :meth:`_bucket_probs_batch`, as
         ``LaughterPipeline.bucket_body`` is the single channel's."""
-        feats = fbank_cuda(waves, host_prep.snip_cfg(self.feat_cfg))
-        return torch.stack([
-            classify_bucket(self.model, f, int(v), self.settings, self.shared_stem)
-            for f, v in zip(feats, valid)
+        return self._gather(self._shard_bodies(waves, valid))
+
+    def fused_batch_body(self, bufs: Sequence, valid: Sequence[int]) -> torch.Tensor:
+        """mode='fused_conv': each local shard's whole-track buffers (host
+        arrays, or tensors on its device, as :meth:`shard_rows` stages
+        them) and every row's frame count -> [rows, total] probabilities
+        on the first device, each shard through ``fused_conv_probs`` on
+        its own device."""
+        split = self._split(len(valid))
+        return self._gather([
+            fused_conv_probs(model, buf, valid[r0:r1], self.feat_cfg, self.settings.window,
+                             dev, self.settings.precision)
+            for model, dev, buf, (r0, r1) in zip(self.shard_models, self.devices, bufs, split)
         ])
+
+    def shard_rows(self, batch: np.ndarray) -> List[torch.Tensor]:
+        """Each local shard's rows of a host batch of this process's rows,
+        on its device as they are (int16 stays int16): what a caller
+        stages ahead of :meth:`bucket_batch_body` or
+        :meth:`fused_batch_body`."""
+        return [torch.from_numpy(np.ascontiguousarray(batch[a:b])).to(d)
+                for d, (a, b) in zip(self.devices, self._split(len(batch)))]
 
     def probs_for_meeting(
         self, audio_paths: Sequence[str], channel: int = 0
@@ -304,9 +392,17 @@ class ShardedStreamingSession(_StreamingBase):
         return self.n_streams
 
     def _execute(self, buf_slices: List[np.ndarray], valid: int) -> np.ndarray:
-        batch = np.stack([self._padded_buffer(sl) for sl in buf_slices])
-        valids = np.full(self.n_streams, valid, dtype=np.int32)
-        return self._pipe._bucket_probs_batch(batch, valids).cpu().numpy()
+        # Silent channels (valid 0) pad the batch to a multiple of the
+        # shard count, as JAX's session pads to its mesh; they are cut
+        # before the rows come back.
+        c_pad = -(-self.n_streams // self._pipe.n_shards) * self._pipe.n_shards
+        batch = np.zeros((c_pad, self._pipe.wave_len), dtype=self._dtype)
+        for i, sl in enumerate(buf_slices):
+            batch[i] = self._padded_buffer(sl)
+        valids = np.zeros(c_pad, dtype=np.int32)
+        valids[: self.n_streams] = valid
+        probs = self._pipe._bucket_probs_batch(batch, valids)
+        return probs[: self.n_streams].cpu().numpy()
 
     def _delegate_short(self, heads: List[np.ndarray]) -> np.ndarray:
         out = self._pipe.probs_for_waveforms(heads)

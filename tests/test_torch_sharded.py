@@ -1,16 +1,21 @@
-"""The port's multichannel pipeline (parallel/sharded_inference.py, one
-device) against the JAX package's ShardedPipeline on the 8-device virtual
-CPU mesh the JAX tests use, on the same numpy-seeded weights.
+"""The port's multichannel pipeline (parallel/sharded_inference.py, on one
+device and on several shards of the CPU) against the JAX package's
+ShardedPipeline on the 8-device virtual CPU mesh the JAX tests use, on the
+same numpy-seeded weights.
 
 Tolerance: probabilities within 1e-5 of JAX's (tests/test_sharded_inference.py).
 Inside the port, ShardedStreamingSession equals the offline batch bit for
-bit.
+bit, and several shards equal one shard bit for bit.
 """
 
+import dataclasses
+import json
 import struct
+import types
 
 import numpy as np
 import pytest
+import torch
 
 from laughter_detection_icsi_tpu import inference as jinf
 from laughter_detection_icsi_tpu.data import audio as jaudio
@@ -165,3 +170,104 @@ def test_guards_and_device_rows(models):
     sess.finish()
     with pytest.raises(RuntimeError):
         sess.feed([np.zeros(4, np.float32), np.zeros(4, np.float32)])
+
+
+# --------------------------------------------------------------------------- #
+# Several shards in one process (devices=["cpu"] * k): JAX's 8-device mesh
+# holds the same rows, and each row is bit-equal to the one-shard run.
+# --------------------------------------------------------------------------- #
+
+#: (shards, channels): both pad (3 -> 4, 5 -> 6).
+SHARDS = [(2, 3), (3, 5)]
+
+
+def _shard_waves(c):
+    """``c`` ragged channels: 3 span two 256-frame buckets, 5 one."""
+    if c == 3:
+        return [_noise(16000 + 777, 60), _noise(16000 * 3, 61), _noise(9000, 62)]
+    return [_noise(8000 + 2100 * i, 63 + i) for i in range(c)]
+
+
+@pytest.mark.parametrize("mode", ["windows", "fused_conv"])
+@pytest.mark.parametrize("k, c", SHARDS)
+def test_local_shards_match_jax_and_one_shard(models, jax_pipes, mode, k, c):
+    waves = _shard_waves(c)
+    sharded = tsi.ShardedPipeline(models[3], settings=tinf.InferenceSettings(**SIZES, mode=mode),
+                                  devices=["cpu"] * k)
+    assert sharded.n_shards == k and sharded.devices == [torch.device("cpu")] * k
+    got = sharded.probs_for_waveforms(waves)
+    one = _port(models, mode=mode).probs_for_waveforms(waves)
+    want = jax_pipes[mode].probs_for_waveforms(waves)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    for g, o, w in zip(got, one, want):
+        np.testing.assert_array_equal(g, o)
+        np.testing.assert_allclose(g, w, rtol=0, atol=ATOL)
+
+
+def test_local_shards_meeting_rows_on_the_first_device(models, tmp_path):
+    """probs_for_meeting_device on written files over 2 shards: the
+    process's rows (3 channels and a padding row) come back on the first
+    device, the channels' bit-equal to one shard's, and local_channels
+    gives every channel once (the padding row never)."""
+    paths = [str(tmp_path / f"chan{i}.sph") for i in range(3)]
+    for i, p in enumerate(paths):
+        jaudio.write_sphere(p, _noise(16000 + 500 * i, 70 + i), 16000)
+    kw = dict(settings=tinf.InferenceSettings(**SIZES, mode="fused_conv"))
+    sharded = tsi.ShardedPipeline(models[3], devices=["cpu", "cpu"], **kw)
+    (probs, ts), durations = sharded.probs_for_meeting_device(paths)
+    assert probs.device == sharded.device and tuple(probs.shape) == (4, max(ts))
+    rows = sharded.local_channels(probs, 3)
+    assert [r for r, _ in rows] == [0, 1, 2] and sharded.local_channel_indices(3) == [0, 1, 2]
+    (one, ts1), _ = _port(models, mode="fused_conv").probs_for_meeting_device(paths)
+    assert ts == ts1 and durations == [pytest.approx(1 + i / 32) for i in range(3)]
+    assert torch.equal(torch.stack([p for _, p in rows]), one)
+
+
+def test_streaming_session_over_two_shards_equals_one_shard_batch(models):
+    """Three live channels over two shards (a silent fourth row pads each
+    bucket batch): the session equals the one-shard offline batch."""
+    n = 16000 * 3 + 900
+    waves = [_noise(n, 80 + i) for i in range(3)]
+    want = _port(models).probs_for_waveforms(waves)
+    sharded = tsi.ShardedPipeline(models[3], settings=tinf.InferenceSettings(**SIZES),
+                                  devices=["cpu", "cpu"])
+    sess = tsi.ShardedStreamingSession(sharded, n_channels=3)
+    got = [sess.feed([w[lo : lo + 12000] for w in waves]) for lo in range(0, n, 12000)]
+    full = np.concatenate(got + [sess.finish()], axis=1)
+    assert full.shape == (3, len(want[0]))
+    for row, w in zip(full, want):
+        np.testing.assert_array_equal(row, w)
+
+
+def test_serve_channels_over_two_shards(models, tmp_path, capsys, monkeypatch):
+    """serve --channels 3 --device cpu,cpu, in this process: the events
+    and the saved probabilities of --device cpu."""
+    import io
+    import sys
+
+    from laughter_detection_icsi_tpu_torch import config
+    from laughter_detection_icsi_tpu_torch.cli import serve
+    from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
+
+    narrow = dataclasses.replace(config.MODEL_MAP["resnet_base"], **SMALL)
+    monkeypatch.setitem(config.MODEL_MAP, "narrow", narrow)
+    ckpt_lib.save_checkpoint(str(tmp_path / "ck"), models[3].state_dict())
+    waves = [(np.clip(_noise(24000, 90 + i), -1, 1) * 32767).astype("<i2") for i in range(3)]
+    thr = float(np.median(np.concatenate(_port(models).probs_for_waveforms(waves))))
+    runs = {}
+    for device in ("cpu", "cpu,cpu"):
+        monkeypatch.setattr(sys, "stdin", types.SimpleNamespace(
+            buffer=io.BytesIO(np.stack(waves, axis=1).tobytes())))
+        probs = tmp_path / f"{device}.npy"
+        assert serve.main([
+            "--model_path", str(tmp_path / "ck"), "--config", "narrow", "--channels", "3",
+            "--threshold", str(thr), "--min_length", "0", "--save_probs", str(probs),
+            "--chunk", "128", "--bucket_frames", "256", "--device", device]) == 0
+        lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+        runs[device] = lines, np.load(probs)
+    (one, p1), (two, p2) = runs["cpu"], runs["cpu,cpu"]
+    assert two[0]["devices"] == ["cpu", "cpu"] and one[0]["devices"] == ["cpu"]
+    events = lambda lines: [l for l in lines if l["type"] == "event"]
+    assert events(two) == events(one) and len(events(one)) > 0
+    assert two[-1] == one[-1] and p2.shape == (3, 150)
+    np.testing.assert_array_equal(p2, p1)
