@@ -54,6 +54,7 @@ from laughter_detection_icsi_tpu_torch.data import audio as audio_io
 from laughter_detection_icsi_tpu_torch.models import fully_conv, shared_stem
 from laughter_detection_icsi_tpu_torch.ops import pcm_pack, smoothing, windows
 from laughter_detection_icsi_tpu_torch.ops.fbank_cuda import fbank_cuda
+from laughter_detection_icsi_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,36 +268,34 @@ def classify_bucket(
     to the settings' compute dtype, then one window per frame is
     classified, ``chunk`` windows at a time: through the shared stem, or as
     a naive window batch.  The classify step of every windows-mode path, a
-    multichannel batch's rows included."""
+    multichannel batch's rows included.  Its spans: ``classify/track`` (the
+    mask, cast, pad and the stem's whole-track convs) and one
+    ``classify/chunk`` a chunk (its windows; the last also the splice)."""
     s = settings
     n_chunks = -(-s.bucket_frames // s.chunk)
     # Enough rows that the last window of the last chunk reads in bounds.
     feat_rows = n_chunks * s.chunk + s.window - 1
-    valid_rows = torch.arange(feats.shape[0], device=feats.device)[:, None] < valid
-    feats = torch.where(valid_rows, feats, 0.0).to(compute_dtype(s.precision))
-    feats = F.pad(feats, (0, 0, 0, feat_rows - feats.shape[0]))
-    starts = [i * s.chunk for i in range(n_chunks)]
-    if not use_shared_stem:
-        outs = [
-            model(windows.extract_windows(feats, i, s.chunk, s.window)[:, None])
-            for i in starts
-        ]
-    elif shared_stem.supports_track2(s.window):
-        track1 = shared_stem.stem_track(model, feats)
-        track2 = shared_stem.stem_track2(model, track1)
-        outs = [
-            shared_stem.chunk_probs_from_track2(
-                model, track1, track2, feats, i, s.chunk, s.window
-            )
-            for i in starts
-        ]
-    else:
-        track1 = shared_stem.stem_track(model, feats)
-        outs = [
-            shared_stem.chunk_probs_from_track(model, track1, feats, i, s.chunk, s.window)
-            for i in starts
-        ]
-    return torch.cat(outs).float()
+    with annotate("classify/track"):
+        valid_rows = torch.arange(feats.shape[0], device=feats.device)[:, None] < valid
+        feats = torch.where(valid_rows, feats, 0.0).to(compute_dtype(s.precision))
+        feats = F.pad(feats, (0, 0, 0, feat_rows - feats.shape[0]))
+        track1 = shared_stem.stem_track(model, feats) if use_shared_stem else None
+        track2 = (shared_stem.stem_track2(model, track1)
+                  if use_shared_stem and shared_stem.supports_track2(s.window) else None)
+    outs = []
+    for i in range(0, n_chunks * s.chunk, s.chunk):
+        with annotate("classify/chunk"):
+            if track1 is None:
+                outs.append(model(windows.extract_windows(feats, i, s.chunk, s.window)[:, None]))
+            elif track2 is not None:
+                outs.append(shared_stem.chunk_probs_from_track2(
+                    model, track1, track2, feats, i, s.chunk, s.window))
+            else:
+                outs.append(shared_stem.chunk_probs_from_track(
+                    model, track1, feats, i, s.chunk, s.window))
+            if len(outs) == n_chunks:  # the last chunk's span holds the splice
+                probs = torch.cat(outs).float()
+    return probs
 
 
 def track_wave_len(total_frames: int, feat_cfg: FeatConfig = FEAT) -> int:
@@ -399,11 +398,12 @@ class LaughterPipeline:
         (``upload_wave``), or as one packed upload decoded there (the same
         numbers)."""
         device = self.device if device is None else device
-        packed = self._maybe_pack(buf)
-        if packed is None:
-            return upload_wave(buf, device, pinned)
-        wires, deltas = packed
-        return upload_packed(wires, buf.shape[-1], deltas, device).reshape(buf.shape)
+        with annotate("sweep/upload"):
+            packed = self._maybe_pack(buf)
+            if packed is None:
+                return upload_wave(buf, device, pinned)
+            wires, deltas = packed
+            return upload_packed(wires, buf.shape[-1], deltas, device).reshape(buf.shape)
 
     def _bucket_probs(self, buf: np.ndarray, valid: int) -> torch.Tensor:
         """One bucket buffer (``wave_len`` samples, int16 or float32) -> its
@@ -418,8 +418,9 @@ class LaughterPipeline:
         fbank op over the bucket and its halo ([bucket + window - 1, F]),
         then ``classify_bucket``.  What ``export.export_bucket_pipeline``
         traces, so the artifact runs this body."""
-        feats = fbank_cuda(wave, host_prep.snip_cfg(self.feat_cfg))
-        return classify_bucket(self.model, feats, valid, self.settings, self.shared_stem)
+        with annotate("sweep/body"):
+            feats = fbank_cuda(wave, host_prep.snip_cfg(self.feat_cfg))
+            return classify_bucket(self.model, feats, valid, self.settings, self.shared_stem)
 
     def bucket_buffers(self, padded: np.ndarray, t: int):
         """Yield ``(buf, valid_frames, keep_frames)`` per bucket: the

@@ -13,7 +13,10 @@ reference's Python scan (reference laugh_segmenter.py:74-111):
 device and brings only [K, max_events] integer tables to the host, where
 the min-length filter applies in float64, so its result is exactly
 ``get_laughter_instances``'.  A threshold whose runs overflow
-``max_events`` falls back to the unbounded host scan.
+``max_events`` falls back to the unbounded host scan.  Its spans
+(``utils/profiling.annotate``): ``smoothing/runs`` (the device pass),
+``smoothing/readback`` (the tables' copy, where the host waits for the
+device), ``smoothing/filter`` and ``smoothing/fallback``.
 ``StreamingEventDetector`` is the incremental twin for live streams.
 """
 
@@ -23,6 +26,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from laughter_detection_icsi_tpu_torch.utils.profiling import annotate
 
 OVERFLOW_EPS = 1e-7
 
@@ -153,34 +158,38 @@ def instances_from_device_probs(
             for min_l in min_lengths:
                 out[(float(thr), float(min_l))] = []
         return out
-    thr_t = torch.from_numpy(np.asarray(thresholds, dtype=np.float32)).to(
-        probs_dev.device
-    )
-    starts, lasts, counts = laughter_runs(probs_dev, thr_t, max_events)
-    starts, lasts, counts = (x.cpu().numpy() for x in (starts, lasts, counts))
+    with annotate("smoothing/runs"):
+        thr_t = torch.from_numpy(np.asarray(thresholds, dtype=np.float32)).to(
+            probs_dev.device
+        )
+        starts, lasts, counts = laughter_runs(probs_dev, thr_t, max_events)
+    with annotate("smoothing/readback"):
+        starts, lasts, counts = (x.cpu().numpy() for x in (starts, lasts, counts))
 
     # Overflowing thresholds (typical at low thresholds on a near-random
     # checkpoint, often many at once) fall back to ONE batched host pass.
     overflowed = [thr for k, thr in enumerate(thresholds) if counts[k] > max_events]
     if overflowed:
-        out.update(
-            get_laughter_instances(
-                probs_dev.cpu().numpy(), thresholds=overflowed,
-                min_lengths=min_lengths, fps=fps,
+        with annotate("smoothing/fallback"):
+            out.update(
+                get_laughter_instances(
+                    probs_dev.cpu().numpy(), thresholds=overflowed,
+                    min_lengths=min_lengths, fps=fps,
+                )
             )
-        )
-    for k, thr in enumerate(thresholds):
-        if counts[k] > max_events:
-            continue  # already handled by the batched host fallback
-        n = int(counts[k])
-        spans = [
-            (int(s) / fps, int(e) / fps)
-            for s, e in zip(starts[k, :n], lasts[k, :n])
-        ]
-        for min_l in min_lengths:
-            out[(float(thr), float(min_l))] = [
-                (float(s), float(e)) for s, e in spans if e - s > min_l
+    with annotate("smoothing/filter"):
+        for k, thr in enumerate(thresholds):
+            if counts[k] > max_events:
+                continue  # already handled by the batched host fallback
+            n = int(counts[k])
+            spans = [
+                (int(s) / fps, int(e) / fps)
+                for s, e in zip(starts[k, :n], lasts[k, :n])
             ]
+            for min_l in min_lengths:
+                out[(float(thr), float(min_l))] = [
+                    (float(s), float(e)) for s, e in spans if e - s > min_l
+                ]
     return out
 
 

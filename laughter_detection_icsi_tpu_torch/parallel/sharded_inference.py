@@ -27,7 +27,10 @@ each channel's frames past its own count.  Under the packed codec a
 shard's rows go up as one [rows, wire_len] upload of bit-packed rows, each
 decoded on the device (``LaughterPipeline._upload``).  In bfloat16 each
 shard runs a bf16 copy of the model, each row cast at the model boundary
-as a single channel's bucket is.
+as a single channel's bucket is.  In a profiler's timeline each stage is a
+span (``utils/profiling.annotate``): ``sweep/decode``, ``sweep/prepare``
+(checks and host padding), ``sweep/batch`` (a bucket batch's host buffer),
+``sweep/upload``, ``sweep/body`` and ``sweep/gather``.
 
 Over several processes, the calls that hand every channel to one process
 (``probs_for_waveforms``, ``probs_for_meeting``) raise, as JAX's do, and
@@ -62,6 +65,7 @@ from laughter_detection_icsi_tpu_torch.inference import (
 from laughter_detection_icsi_tpu_torch.ops.fbank_cuda import fbank_cuda
 from laughter_detection_icsi_tpu_torch.parallel import mesh
 from laughter_detection_icsi_tpu_torch.runtime import native
+from laughter_detection_icsi_tpu_torch.utils.profiling import annotate
 
 
 class ShardedPipeline(LaughterPipeline):
@@ -127,9 +131,10 @@ class ShardedPipeline(LaughterPipeline):
     def _gather(self, pieces: Sequence[torch.Tensor]) -> torch.Tensor:
         """Each local shard's rows, on its device -> this process's rows on
         the first device: one peer copy a shard on another card."""
-        if len(pieces) == 1:
-            return pieces[0]
-        return torch.cat([p.to(self.device) for p in pieces])
+        with annotate("sweep/gather"):
+            if len(pieces) == 1:
+                return pieces[0]
+            return torch.cat([p.to(self.device) for p in pieces])
 
     def _refuse_multi(self, what: str) -> None:
         if self._multi:
@@ -163,21 +168,22 @@ class ShardedPipeline(LaughterPipeline):
             # len(), not truthiness: a [C, n] ndarray batch is ambiguous
             # under `not`.
             return None, []
-        for w in waves:
-            check_pcm(np.asarray(w))
-        int16_in = all(np.asarray(w).dtype == np.int16 for w in waves)
-        dtype = np.int16 if int16_in else np.float32
-        padded_list, ts = [], []
-        for w in waves:
-            w = np.asarray(w)
-            if not int16_in and w.dtype == np.int16:
-                # Mixed batch: the device scales only an all-int16 batch, so
-                # this channel is scaled on the host (a bare astype would
-                # feed +-32768-range values to the featurizer).
-                w = w.astype(np.float32) / 32768.0
-            p, t = host_prep.host_pad_waveform(w.astype(dtype), self.feat_cfg)
-            padded_list.append(p)
-            ts.append(t)
+        with annotate("sweep/prepare"):
+            for w in waves:
+                check_pcm(np.asarray(w))
+            int16_in = all(np.asarray(w).dtype == np.int16 for w in waves)
+            dtype = np.int16 if int16_in else np.float32
+            padded_list, ts = [], []
+            for w in waves:
+                w = np.asarray(w)
+                if not int16_in and w.dtype == np.int16:
+                    # Mixed batch: the device scales only an all-int16 batch,
+                    # so this channel is scaled on the host (a bare astype
+                    # would feed +-32768-range values to the featurizer).
+                    w = w.astype(np.float32) / 32768.0
+                p, t = host_prep.host_pad_waveform(w.astype(dtype), self.feat_cfg)
+                padded_list.append(p)
+                ts.append(t)
         return self._probs_padded_device(padded_list, ts, int16_in), ts
 
     def _probs_padded_device(self, padded_list, ts, int16_in: bool) -> Optional[torch.Tensor]:
@@ -195,12 +201,13 @@ class ShardedPipeline(LaughterPipeline):
             b = self.settings.bucket_frames
             total = max(b, -(-t_max // b) * b)
             lo, hi = self._rows_slice(c)
-            batch = np.zeros((hi - lo, track_wave_len(total, self.feat_cfg)), dtype=dtype)
-            valid = [0] * (hi - lo)
-            for r in range(lo, min(hi, c)):
-                if padded_list[r] is not None:
-                    batch[r - lo, : len(padded_list[r])] = padded_list[r]
-                valid[r - lo] = ts[r]
+            with annotate("sweep/batch"):
+                batch = np.zeros((hi - lo, track_wave_len(total, self.feat_cfg)), dtype=dtype)
+                valid = [0] * (hi - lo)
+                for r in range(lo, min(hi, c)):
+                    if padded_list[r] is not None:
+                        batch[r - lo, : len(padded_list[r])] = padded_list[r]
+                    valid[r - lo] = ts[r]
             # Slice to [C, t_max]: the masked tail carries a fully-conv
             # bias-leak constant (~0.48 at init scale), not 0, and a device
             # consumer would smooth phantom laughter past the audio's end.
@@ -212,7 +219,9 @@ class ShardedPipeline(LaughterPipeline):
             keep = min(bucket, t_max - k * bucket)
             for acc, probs in zip(shards, self._shard_probs(batch, valid)):
                 acc.append(probs[:, :keep])
-        return self._gather([torch.cat(acc, dim=1) for acc in shards])
+        with annotate("sweep/gather"):
+            rows = [torch.cat(acc, dim=1) for acc in shards]
+        return self._gather(rows)
 
     def bucket_batches(self, padded_list, ts, int16_in: bool = False):
         """Yield the windows-mode bucket plan of this process's rows, one
@@ -226,14 +235,17 @@ class ShardedPipeline(LaughterPipeline):
         window = self.settings.window
         shift = host_prep.snip_cfg(self.feat_cfg).frame_shift_samples
         for k in range(-(-max(ts) // bucket)):
-            lo = k * bucket * shift
-            batch = np.zeros((row_hi - row_lo, self.wave_len), dtype=dtype)
-            valid = np.zeros(row_hi - row_lo, dtype=np.int32)
-            for r in range(row_lo, min(row_hi, c)):
-                if padded_list[r] is not None:
-                    src = padded_list[r][lo : lo + self.wave_len]
-                    batch[r - row_lo, : len(src)] = src
-                valid[r - row_lo] = int(np.clip(ts[r] - k * bucket, 0, bucket + window - 1))
+            # The span closes before the yield: it never stays open while
+            # the consumer runs the batch.
+            with annotate("sweep/batch"):
+                lo = k * bucket * shift
+                batch = np.zeros((row_hi - row_lo, self.wave_len), dtype=dtype)
+                valid = np.zeros(row_hi - row_lo, dtype=np.int32)
+                for r in range(row_lo, min(row_hi, c)):
+                    if padded_list[r] is not None:
+                        src = padded_list[r][lo : lo + self.wave_len]
+                        batch[r - row_lo, : len(src)] = src
+                    valid[r - row_lo] = int(np.clip(ts[r] - k * bucket, 0, bucket + window - 1))
             yield batch, valid, k
 
     def _shard_probs(self, batch: np.ndarray, valid: np.ndarray) -> List[torch.Tensor]:
@@ -263,12 +275,13 @@ class ShardedPipeline(LaughterPipeline):
         equals that channel run alone, and the activations live are one
         channel's."""
         out = []
-        for model, w, (a, b) in zip(self.shard_models, waves, self._split(len(valid))):
-            feats = fbank_cuda(w, host_prep.snip_cfg(self.feat_cfg))
-            out.append(torch.stack([
-                classify_bucket(model, f, int(v), self.settings, self.shared_stem)
-                for f, v in zip(feats, valid[a:b])
-            ]))
+        with annotate("sweep/body"):
+            for model, w, (a, b) in zip(self.shard_models, waves, self._split(len(valid))):
+                feats = fbank_cuda(w, host_prep.snip_cfg(self.feat_cfg))
+                out.append(torch.stack([
+                    classify_bucket(model, f, int(v), self.settings, self.shared_stem)
+                    for f, v in zip(feats, valid[a:b])
+                ]))
         return out
 
     def bucket_batch_body(self, waves: Sequence[torch.Tensor], valid) -> torch.Tensor:
@@ -286,11 +299,13 @@ class ShardedPipeline(LaughterPipeline):
         on the first device, each shard through ``fused_conv_probs`` on
         its own device."""
         split = self._split(len(valid))
-        return self._gather([
-            fused_conv_probs(model, buf, valid[r0:r1], self.feat_cfg, self.settings.window,
-                             dev, self.settings.precision)
-            for model, dev, buf, (r0, r1) in zip(self.shard_models, self.devices, bufs, split)
-        ])
+        with annotate("sweep/body"):
+            pieces = [
+                fused_conv_probs(model, buf, valid[r0:r1], self.feat_cfg, self.settings.window,
+                                 dev, self.settings.precision)
+                for model, dev, buf, (r0, r1) in zip(self.shard_models, self.devices, bufs, split)
+            ]
+        return self._gather(pieces)
 
     def shard_rows(self, batch: np.ndarray) -> List[torch.Tensor]:
         """Each local shard's rows of a host batch of this process's rows,
@@ -337,28 +352,30 @@ class ShardedPipeline(LaughterPipeline):
         int16_in = all(int16_transfer_eligible(m, self.settings) for m in metas)
         mine = self.local_channel_indices(len(audio_paths))
         my_paths = [audio_paths[r] for r in mine]
-        if int16_in:
-            with ThreadPoolExecutor(max_workers=min(8, max(1, len(mine)))) as ex:
-                decoded = list(ex.map(
-                    lambda r: audio_io.read_int16(audio_paths[r], channel=channel,
-                                                  meta=metas[r]),
-                    mine,
-                ))
-        elif my_paths:
-            decoded = native.read_batch(my_paths, channels=[channel] * len(my_paths))
-        else:
-            decoded = []
+        with annotate("sweep/decode"):
+            if int16_in:
+                with ThreadPoolExecutor(max_workers=min(8, max(1, len(mine)))) as ex:
+                    decoded = list(ex.map(
+                        lambda r: audio_io.read_int16(audio_paths[r], channel=channel,
+                                                      meta=metas[r]),
+                        mine,
+                    ))
+            elif my_paths:
+                decoded = native.read_batch(my_paths, channels=[channel] * len(my_paths))
+            else:
+                decoded = []
         ts = [host_prep.num_frames(m.num_samples, self.feat_cfg) for m in metas]
         dtype = np.int16 if int16_in else np.float32
         padded_list: List[Optional[np.ndarray]] = [None] * len(audio_paths)
-        for r, (w, _sr) in zip(mine, decoded):
-            p, t = host_prep.host_pad_waveform(np.asarray(w).astype(dtype), self.feat_cfg)
-            if t != ts[r]:
-                raise RuntimeError(
-                    f"{audio_paths[r]}: decoded frame count {t} != header-derived "
-                    f"{ts[r]} (truncated file or header mismatch?)"
-                )
-            padded_list[r] = p
+        with annotate("sweep/prepare"):
+            for r, (w, _sr) in zip(mine, decoded):
+                p, t = host_prep.host_pad_waveform(np.asarray(w).astype(dtype), self.feat_cfg)
+                if t != ts[r]:
+                    raise RuntimeError(
+                        f"{audio_paths[r]}: decoded frame count {t} != header-derived "
+                        f"{ts[r]} (truncated file or header mismatch?)"
+                    )
+                padded_list[r] = p
         probs = self._probs_padded_device(padded_list, ts, int16_in)
         return (probs, ts), [m.duration for m in metas]
 

@@ -1,11 +1,14 @@
-"""Profiling and observability: torch.profiler traces and throughput counters.
+"""Profiling and observability: torch.profiler traces, spans and a throughput meter.
 
 The port of the JAX package's ``utils/profiling.py``.  ``trace(dir)``
 captures a ``torch.profiler`` trace of the host and, where there is one,
 the CUDA device, and writes it into ``dir`` as a Chrome trace (open it in
 Perfetto or chrome://tracing); any CLI enables it with ``--trace_dir``.
-``annotate`` names a region in that timeline.  The throughput meter counts
-in the unit the sweep is measured in, audio-seconds per wall-second.
+``annotate`` names a span in that timeline, on the clock of the device's
+kernels; outside a profiler it records nothing and costs well under a
+microsecond, so spans sit on the per-row path.  The throughput meter
+counts in the unit the sweep is measured in, audio-seconds per
+wall-second.
 """
 
 from __future__ import annotations
@@ -14,7 +17,14 @@ import contextlib
 import dataclasses
 import os
 import time
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# torch.profiler.profile, emit_nvtx and emit_itt set this flag while they
+# record; a torch without it gets every span recorded.
+_HAS_FLAG = hasattr(_autograd_profiler, "_is_profiler_enabled")
 
 
 @contextlib.contextmanager
@@ -24,7 +34,6 @@ def trace(trace_dir: Optional[str]) -> Iterator[None]:
     if not trace_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -36,13 +45,29 @@ def trace(trace_dir: Optional[str]) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{os.getpid()}.json"))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named region inside an active trace (shows up in the timeline)."""
-    import torch
+class annotate:
+    """``with annotate('sweep/upload'):`` names a span of the timeline.
+    While a profiler records, the span is a ``torch.profiler.record_function``
+    (in the Chrome trace beside the kernels it launched, on one clock);
+    otherwise entering and leaving it do nothing, so a traced graph
+    (``torch.export``) holds no profiler op."""
 
-    with torch.profiler.record_function(name):
-        yield
+    __slots__ = ("name", "_region")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._region = None
+
+    def __enter__(self) -> "annotate":
+        if not _HAS_FLAG or _autograd_profiler._is_profiler_enabled:
+            self._region = torch.profiler.record_function(self.name)
+            self._region.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        region, self._region = self._region, None
+        if region is not None:
+            region.__exit__(*exc)
 
 
 @dataclasses.dataclass
@@ -86,21 +111,3 @@ class ThroughputMeter:
         if self.wall_seconds == 0:
             return 0.0
         return self.audio_seconds / self.wall_seconds / self.n_chips
-
-    @property
-    def audio_hours_per_sec_per_chip(self) -> float:
-        return self.x_realtime_per_chip / 3600.0
-
-    def report(self) -> str:
-        return (
-            f"{self.audio_seconds / 3600:.2f} audio-h in {self.wall_seconds:.1f}s"
-            f" = {self.x_realtime_per_chip:.1f}x realtime/chip"
-            f" ({self.audio_hours_per_sec_per_chip:.4f} audio-h/s/chip)"
-        )
-
-
-def epoch_time(start: float, end: float) -> Tuple[int, int]:
-    """(minutes, seconds) of an interval (reference utils/torch_utils.py:98-102)."""
-    elapsed = end - start
-    mins = int(elapsed / 60)
-    return mins, int(elapsed - mins * 60)
