@@ -12,7 +12,8 @@ Phases (any failure exits non-zero and prints no result):
 2. build  — compile the fbank kernel from csrc/fbank.cu (timed); ptxas's
    register/spill report (any spill fails) and the count of tensor-core
    ``HMMA`` instructions in the kernel's SASS (none fails); the frames a
-   block computes, as the library reports them;
+   block computes, as the library reports them; then the conv epilogue
+   from csrc/bn_act.cu, its ptxas report (any spill fails);
 3. kernel — ``fbank_cuda`` against its plain PyTorch version on the card
    (atol 2e-4, rtol 1e-4) at the listed shapes (int16-scaled audio, a
    silent stretch at the energy floor, 3 whole blocks of frames and one
@@ -25,7 +26,11 @@ Phases (any failure exits non-zero and prints no result):
    the kernel's, the plain version's and one cuBLAS matmul's times at the
    main-path bucket, the whole track and the cache's bucket, beside the
    3xTF32 tensor-core bound (the JSON line's ``bound_ms``, at the bucket)
-   and the fp32 CUDA-core one (printed only);
+   and the fp32 CUDA-core one (printed only); then the conv epilogue
+   (ops/bn_act_cuda.py) at the sweep's band and tail shapes: in bf16 bit
+   for bit the eager chain it replaces, its time beside that chain's and
+   its byte bound; in float32 ``layers.conv_bn_act`` (the bias in the
+   library's conv) bit for bit the composed chain;
 4. main path — full-width ``resnet_base`` ResNetBigger (numpy-seeded
    weights in a ``.ckpt.npz``) segments ~150 s of synthetic int16 audio
    through the port's CLI on ``cuda``; the kernel must launch once per
@@ -219,8 +224,13 @@ Phases (any failure exits non-zero and prints no result):
 17. the card, one JSON line of the kernels (the fbank kernel at the main
    path's bucket; ``launches`` counted on phase 8's sweep, the launches of
    every path, the bf16 paths', the e2e artifact's, each rank's of phase 14,
-   the bench's profiled call and phase 16's paths included, beside them),
-   then the result line.
+   the bench's profiled call and phase 16's paths included, beside them)
+   and of the conv epilogue (``launches`` counted on phase 11's bf16 sweep,
+   beside the launches of each path counted: phases 4-8, 11 and 13, the
+   train steps of phases 9 and 12, and phase 16's parity run), then the
+   result line.  Each path's epilogue launches must equal the convs its
+   classify steps run (``convs_per_bucket``): 0 on fused_conv and in a
+   train step.
 
 ``python3 chip_smoke.py --through 7`` runs phases 1-7 alone and prints
 no result line: phase 7 (b) on a host of several cards, where phases 8
@@ -288,6 +298,78 @@ class PhaseError(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+def convs_per_bucket(model, settings, shared: bool) -> int:
+    """The convs one ``inference.classify_bucket`` call runs, each followed
+    by one launch of the conv epilogue on the card in eval mode.  A naive
+    window batch runs every conv of the model a chunk.  The shared stem
+    runs stage 1's (and, where ``supports_track2``, stage 2's) convs once
+    over the whole track, and a chunk runs those convs again on its two
+    edge bands beside the later stages' convs."""
+    from torch import nn
+
+    from laughter_detection_icsi_tpu_torch.models import shared_stem
+
+    convs = lambda parts: sum(isinstance(m, nn.Conv2d) for p in parts for m in p.modules())
+    n_chunks = -(-settings.bucket_frames // settings.chunk)
+    if not shared:
+        return n_chunks * convs([model])
+    stages = model.stages()
+    k = 2 if shared_stem.supports_track2(settings.window) else 1
+    track = convs([model.conv1, *stages[:k]])
+    return track + n_chunks * (2 * track + convs(stages[k:]))
+
+
+class EpilogueCount:
+    """The conv epilogue's launches (``ops/bn_act_cuda.launches``) over one
+    path's run, held against the launches the run owes: ``with
+    EPILOGUES.count(path):`` zeroes the counter and, while it lasts, adds
+    ``convs_per_bucket`` for each classify step (``classify_bucket``, as
+    inference and the sharded pipeline call it).  On leaving it checks the
+    two are equal and keeps the count under ``path``.  A path with no
+    classify step (fused_conv, a train step) owes 0."""
+
+    def __init__(self):
+        self.by_path = {}
+
+    def count(self, path: str):
+        import contextlib
+
+        from laughter_detection_icsi_tpu_torch import inference
+        from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda
+        from laughter_detection_icsi_tpu_torch.parallel import sharded_inference
+
+        @contextlib.contextmanager
+        def counting():
+            owed = [0]
+            real = inference.classify_bucket
+
+            def counted(model, feats, valid, settings, use_shared_stem):
+                owed[0] += convs_per_bucket(model, settings, use_shared_stem)
+                return real(model, feats, valid, settings, use_shared_stem)
+
+            mods = (inference, sharded_inference)
+            saved = [m.classify_bucket for m in mods]
+            for m in mods:
+                m.classify_bucket = counted
+            bn_act_cuda.launches = 0
+            try:
+                yield
+            finally:
+                for m, f in zip(mods, saved):
+                    m.classify_bucket = f
+            self.check(path, bn_act_cuda.launches, owed[0])
+
+        return counting()
+
+    def check(self, path: str, launches: int, owed: int) -> None:
+        check(launches == owed, f"{path}: {launches} conv epilogue launches where its classify "
+                                f"steps owe {owed}")
+        self.by_path[path] = launches
+
+
+EPILOGUES = EpilogueCount()
 
 
 def speechlike(n: int, seed: int) -> np.ndarray:
@@ -381,6 +463,28 @@ def phase_build():
     fbank_cuda._library()
     seconds = time.perf_counter() - t0
     print(f"built {lib.relative_to(REPO)} in {seconds:.2f} s")
+    check(not any(ptxas_spills(lib)), "the fbank kernel spills registers")
+    ops = sass_opcodes(lib, "fbank_kernel")
+    hmma = sum(op.startswith("HMMA") for op in ops)
+    print(f"  SASS: {hmma} HMMA (tensor-core) of {len(ops)} instructions in fbank_kernel "
+          f"(dump: {lib.with_suffix('.sass').relative_to(REPO)})")
+    check(hmma > 0, "no HMMA instruction in fbank_kernel: the DFT is not on the tensor cores")
+    block_frames = fbank_cuda.frames_per_block()
+    print(f"  the kernel computes {block_frames} frames a block")
+
+    from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda
+
+    t0 = time.perf_counter()
+    lib = bn_act_cuda.build()
+    bn_act_cuda._library()
+    print(f"built {lib.relative_to(REPO)} in {time.perf_counter() - t0:.2f} s")
+    check(not any(ptxas_spills(lib)), "the conv epilogue kernel spills registers")
+    return block_frames
+
+
+def ptxas_spills(lib: Path) -> list:
+    """The spill bytes (stores + loads) of each kernel in the nvcc report
+    kept beside ``lib``; its register and spill lines are printed."""
     log = lib.with_suffix(".log")
     check(log.is_file(), f"no nvcc report beside {lib.name}")
     spills = []
@@ -391,15 +495,7 @@ def phase_build():
         if m:
             spills.append(int(m.group(1)) + int(m.group(2)))
     check(spills, "ptxas printed no spill report")
-    check(not any(spills), "the fbank kernel spills registers")
-    ops = sass_opcodes(lib, "fbank_kernel")
-    hmma = sum(op.startswith("HMMA") for op in ops)
-    print(f"  SASS: {hmma} HMMA (tensor-core) of {len(ops)} instructions in fbank_kernel "
-          f"(dump: {lib.with_suffix('.sass').relative_to(REPO)})")
-    check(hmma > 0, "no HMMA instruction in fbank_kernel: the DFT is not on the tensor cores")
-    block_frames = fbank_cuda.frames_per_block()
-    print(f"  the kernel computes {block_frames} frames a block")
-    return block_frames
+    return spills
 
 
 def sass_opcodes(lib: Path, function: str) -> list:
@@ -579,6 +675,77 @@ def time_fbank(x, cfg, peak, card, where: str) -> dict:
                 library_ms=library_ms)
 
 
+def phase_epilogue(card, peak) -> dict:
+    """The conv epilogue (ops/bn_act_cuda.py) on the sweep's widest and
+    narrowest conv outputs, in its heaviest form (conv bias, BN, a residual,
+    ReLU).  In bf16: bit for bit the eager chain it replaces, and the
+    kernel's and the chain's device times beside the byte bound (y and the
+    residual read once, the output written once).  In float32, the form
+    phases 4-10 and 16 run: ``layers.conv_bn_act`` (the library's conv
+    adds the bias, the kernel the rest) bit for bit the composed chain."""
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import inference
+    from laughter_detection_icsi_tpu_torch.models import layers as L
+    from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda
+
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"band": ((6144, 64, 7, 44), "strided"), "tail": ((6144, 16, 25, 11), "contiguous")}
+    times = {}
+    for where, (shape, layout) in shapes.items():
+        n, c, h, w = shape
+        bf = lambda *s: torch.randn(s, generator=gen).to("cuda", torch.bfloat16)
+        y, bias = bf(n, c, h, w), bf(c) * 0.1
+        bn = torch.nn.BatchNorm2d(c).to("cuda", torch.bfloat16).eval()
+        with torch.no_grad():
+            bn.weight.uniform_(0.7, 1.3)
+            bn.bias.normal_(0.0, 0.1)
+            bn.running_mean.normal_(0.0, 0.3)
+            bn.running_var.uniform_(0.5, 2.0)
+        res = bf(n, c, h + 2, w)[:, :, 2:] if layout == "strided" else bf(n, c, h, w)
+        norm = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        kernel = lambda: torch.ops.laughter_icsi_torch.bn_act(y, bias, *norm, res, True,
+                                                              L.BN_EPS)
+        chain = lambda: torch.relu(L.batch_norm(y + bias.reshape(1, -1, 1, 1), bn) + res)
+        with torch.inference_mode():
+            check(torch.equal(kernel().view(torch.int16), chain().view(torch.int16)),
+                  f"the epilogue differs from the eager chain at the {where} shape")
+            kernel_ms, chain_ms = cuda_ms(kernel), cuda_ms(chain)
+        nbytes = 3 * y.numel() * y.element_size()
+        bound_ms = 1e3 * nbytes / peak["bytes"]
+        print(f"conv epilogue at the {where} shape {list(shape)} bf16, {layout} residual "
+              f"({nbytes / 1e6:.1f} MB) on {card}: bit-equal to the eager chain; kernel "
+              f"{kernel_ms:.4f} ms | eager chain {chain_ms:.4f} ms | byte bound "
+              f"{bound_ms:.4f} ms ({100 * bound_ms / kernel_ms:.1f}% of it reached)")
+        times[where] = dict(ms=kernel_ms, plain_ms=chain_ms, bound_ms=bound_ms)
+        del y, res
+
+        # float32 through conv_bn_act: a band's conv pads F alone (two rows
+        # fewer out), the tail's pads both.
+        band = layout == "strided"
+        pad = (0, 1) if band else 1
+        x = torch.randn(n, c, h + 2 if band else h, w, generator=gen).cuda()
+        conv, bn = torch.nn.Conv2d(c, c, 3).cuda(), bn.float()
+        res = torch.randn(n, c, h + 2 if band else h, w, generator=gen).cuda()
+        res = res[:, :, 2:] if band else res
+        before = bn_act_cuda.launches
+        with torch.inference_mode(), inference.strict_fp32():
+            got = L.conv_bn_act(x, conv, bn, residual=res, padding=pad)
+            launched = bn_act_cuda.launches - before
+            want = torch.relu(L.batch_norm(L.conv2d(x, conv, 1, pad), bn) + res)
+        check(launched == 1 and got.shape == (n, c, h, w)
+              and torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"float32 conv_bn_act differs from the composed chain at the {where} shape "
+              f"({launched} launches)")
+        print(f"  float32 at the {where} shape: layers.conv_bn_act (the bias in the library's "
+              f"conv, one launch of the kernel) bit-equal to the composed chain")
+        del x, got, want, res
+    return dict(name="bn_act", route="cuda",
+                source="laughter_detection_icsi_tpu_torch/csrc/bn_act.cu", replaces=None,
+                bound_by="bytes", **{f"{k}_{where}": v for where, t in times.items()
+                                     for k, v in t.items()})
+
+
 def precision_setting() -> str:
     import torch
 
@@ -648,18 +815,20 @@ def phase_main_path(card, work: Path):
     out = work / "out"
     fbank_cuda.launches = 0
     t0 = time.perf_counter()
-    rc = cli.main([
-        "--model_path", ckpt, "--input_audio_file", str(wav), "--output_dir", str(out),
-        "--thresholds", f"{thr},0.9", "--min_lengths", "0.2",
-        "--save_to_textgrid", "True", "--save_to_audio_files", "False",
-        "--device", "cuda", "--precision", "float32",
-    ])
+    with EPILOGUES.count("windows"):
+        rc = cli.main([
+            "--model_path", ckpt, "--input_audio_file", str(wav), "--output_dir", str(out),
+            "--thresholds", f"{thr},0.9", "--min_lengths", "0.2",
+            "--save_to_textgrid", "True", "--save_to_audio_files", "False",
+            "--device", "cuda", "--precision", "float32",
+        ])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = fbank_cuda.launches
     check(rc == 0, f"CLI returned {rc}")
     check(launches == n_buckets, f"fbank kernel launched {launches} times for {n_buckets} buckets")
-    print(f"CLI run: fbank kernel launched {launches} times ({n_buckets} buckets)")
+    print(f"CLI run: fbank kernel launched {launches} times ({n_buckets} buckets), the conv "
+          f"epilogue {EPILOGUES.by_path['windows']} times (every conv of its classify steps)")
 
     grid = out / f"t_{thr}" / "l_0.2" / "meeting.TextGrid"
     want = smoothing.get_laughter_instances(probs, [thr], [0.2])[(thr, 0.2)]
@@ -733,12 +902,13 @@ def phase_fused_conv(card, work: Path, ctx: dict) -> int:
 
     out = work / "out_fused"
     fbank_cuda.launches = 0
-    rc = cli.main([
-        "--model_path", ctx["ckpt"], "--input_audio_file", str(wav), "--output_dir", str(out),
-        "--thresholds", f"{thr}", "--min_lengths", "0.2", "--save_to_textgrid", "True",
-        "--save_to_audio_files", "False", "--mode", "fused_conv", "--device", "cuda",
-        "--precision", "float32",
-    ])
+    with EPILOGUES.count("fused_conv"):  # no classify step: owes 0
+        rc = cli.main([
+            "--model_path", ctx["ckpt"], "--input_audio_file", str(wav), "--output_dir", str(out),
+            "--thresholds", f"{thr}", "--min_lengths", "0.2", "--save_to_textgrid", "True",
+            "--save_to_audio_files", "False", "--mode", "fused_conv", "--device", "cuda",
+            "--precision", "float32",
+        ])
     torch.cuda.synchronize()
     launches = fbank_cuda.launches
     check(rc == 0, f"CLI returned {rc}")
@@ -843,7 +1013,7 @@ def phase_streaming(card, work: Path, ctx: dict) -> int:
     stdout = io.StringIO()
     fbank_cuda.launches = 0
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(stdout):
+    with contextlib.redirect_stdout(stdout), EPILOGUES.count("serve"):
         rc = serve.main([
             "--model_path", ctx["ckpt"], "--input", str(ctx["wav"]), "--threshold", str(thr),
             "--min_length", "0.2", "--chunk_ms", "250", "--save_probs", str(saved),
@@ -868,7 +1038,8 @@ def phase_streaming(card, work: Path, ctx: dict) -> int:
     check(events == want and len(events) > 0, f"serve events {events[:3]}... != offline {want[:3]}...")
     print(f"serve replay (--chunk_ms 250): probabilities bit-equal to offline; {len(events)} "
           f"events equal the offline smoothing; fbank kernel launched {launches} times "
-          f"({ctx['n_buckets']} buckets + 1 warm-up); wall {wall:.3f} s incl. model load")
+          f"({ctx['n_buckets']} buckets + 1 warm-up), the conv epilogue "
+          f"{EPILOGUES.by_path['serve']} times; wall {wall:.3f} s incl. model load")
 
     # The feed that completes bucket 0, on a warm pipeline.
     sess = inference.StreamingSession(pipe)
@@ -905,7 +1076,8 @@ def phase_multichannel(card, work: Path, ctx: dict) -> int:
                             settings=inference.settings_from_flags(device="cuda", precision="float32"))
     spipe.probs_for_waveforms(chans)  # warms cuDNN up for the batch
     fbank_cuda.launches = 0
-    rows = spipe.probs_for_waveforms(chans)
+    with EPILOGUES.count("multichannel"):
+        rows = spipe.probs_for_waveforms(chans)
     torch.cuda.synchronize()
     launches = fbank_cuda.launches
     padded, ts = zip(*(host_prep.host_pad_waveform(w) for w in chans))
@@ -916,8 +1088,9 @@ def phase_multichannel(card, work: Path, ctx: dict) -> int:
     d_row = max(np.abs(r - ctx["pipe"].probs_for_waveform(w)).max() for r, w in zip(rows, chans))
     check(d_row <= 1e-5, f"multichannel rows vs single-channel differ by {d_row:.3e} > 1e-5")
     print(f"4 channels x {SECONDS} s (one 777 samples shorter): fbank kernel launched {launches} "
-          f"times ({n_batches} bucket batches); rows vs LaughterPipeline max |diff| = {d_row:.3e} "
-          f"(limit 1e-5)")
+          f"times ({n_batches} bucket batches), the conv epilogue "
+          f"{EPILOGUES.by_path['multichannel']} times; rows vs LaughterPipeline max |diff| = "
+          f"{d_row:.3e} (limit 1e-5)")
 
     m = n - 777  # a live meeting's channels advance together
     equal = [w[:m] for w in chans]
@@ -1003,14 +1176,16 @@ def serve_in_process(argv, pcm: bytes) -> list:
     return [json.loads(line) for line in out.getvalue().splitlines()]
 
 
-def shard_run(card, ctx, devices, chans, rows, equal, seg, thr, want, atol: float, what: str):
+def shard_run(card, ctx, devices, chans, rows, equal, seg, thr, want, atol: float, what: str,
+              path: str):
     """One shard list through phase 7's multichannel paths: float32 and
     bfloat16 rows against the one-shard rows (``rows``, and a one-shard
     bf16 run here) within ``atol`` (0: bit-equal), one fbank launch per
     shard per bucket batch, the streaming session against the one-shard
     offline batch of ``equal``, and ``serve --channels 4`` in this process
-    against the one-shard events ``want`` of ``seg``.  Returns (launches
-    of the float32 batch, its best wall of 3, the pipeline)."""
+    against the one-shard events ``want`` of ``seg``.  The float32 batch's
+    conv epilogue launches are kept under ``path``.  Returns (launches of
+    the float32 batch, its best wall of 3, the pipeline)."""
     import torch
 
     from laughter_detection_icsi_tpu_torch import host_prep, inference
@@ -1025,7 +1200,8 @@ def shard_run(card, ctx, devices, chans, rows, equal, seg, thr, want, atol: floa
     spipe.probs_for_waveforms(chans)  # every shard's cuDNN choices, off the count
     sync_all()
     fbank_cuda.launches = 0
-    got = spipe.probs_for_waveforms(chans)
+    with EPILOGUES.count(path):
+        got = spipe.probs_for_waveforms(chans)
     sync_all()
     launches = fbank_cuda.launches
     padded, ts = zip(*(host_prep.host_pad_waveform(w) for w in chans))
@@ -1100,7 +1276,7 @@ def local_shards(card, ctx, chans, rows, equal, seg, thr, want) -> int:
     audio_s = sum(len(w) for w in chans) / 16000
     two = [torch.device("cuda", 0)] * 2
     launches, took, spipe = shard_run(card, ctx, two, chans, rows, equal, seg, thr, want, 0.0,
-                                      "(a) two shards of one card")
+                                      "(a) two shards of one card", "multichannel_two_shards")
     padded, ts = zip(*(host_prep.host_pad_waveform(w) for w in chans))
     batch, valid, _ = next(spipe.bucket_batches(padded, ts, int16_in=True))
     torch.cuda.synchronize()
@@ -1132,7 +1308,7 @@ def local_shards(card, ctx, chans, rows, equal, seg, thr, want) -> int:
     cards = mesh.local_devices("cuda")
     check(len(cards) == n_cards, f"(b) local_devices('cuda') gave {cards} for {n_cards} cards")
     _, took_n, _ = shard_run(card, ctx, cards, chans, rows, equal, seg, thr, want, 1e-6,
-                             f"(b) every card ({n_cards})")
+                             f"(b) every card ({n_cards})", "multichannel_every_card")
     info = fbank_cuda.kernel_constants.cache_info()
     print(f"(b) {n_cards} cards: {audio_s:.3f} audio-s in {took_n:.4f} s, {audio_s / took_n:.1f} "
           f"audio-s per wall-s (best of 3) against one card's {ctx['mc_rate']:.1f} "
@@ -1369,7 +1545,8 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         native_before = native.shorten_decodes
         fbank_cuda.launches = 0
-        with contextlib.redirect_stdout(text):
+        path = "sweep" if name == "raw" else f"sweep_{name}"
+        with contextlib.redirect_stdout(text), EPILOGUES.count(path):
             rc = sweep.main(["--audio_dir", str(adir), "--transcript_dir", str(tdir),
                              "--output_dir", str(out), "--split", "all", "--analyse",
                              "--model_path", ctx["ckpt"], "--device", "cuda",
@@ -1394,8 +1571,8 @@ def phase_sweep(card, work: Path, ctx: dict) -> dict:
                    decode_s=spans.covered("decode_shorten"), n_decodes=decoded,
                    tg_s=spans.covered("write_textgrid"), n_tg=len(spans.spans.get("write_textgrid", [])))
         report = [line for line in text.splitlines() if line.startswith(("swept", "best F1", "AP("))]
-        print(f"sweep {name} ({' '.join(flags) or 'raw'}): {launches} fbank launches; "
-              + "; ".join(report))
+        print(f"sweep {name} ({' '.join(flags) or 'raw'}): {launches} fbank launches, "
+              f"{EPILOGUES.by_path[path]} conv epilogue launches; " + "; ".join(report))
         return res
 
     try:
@@ -1683,9 +1860,10 @@ def phase_train(card, work: Path, ctx: dict) -> int:
     # (b) 20 steps at dropout 0.5 on one batch.
     t = Trainer(model(0.5), device=DEVICE)
     opt, losses = t.init(), []
-    for step in range(20):
-        opt, m = t.train_batch(opt, b0, step_generator(0, step, DEVICE))
-        losses.append(m["loss"])
+    with EPILOGUES.count("train_steps"):  # train mode's batch statistics: owes 0
+        for step in range(20):
+            opt, m = t.train_batch(opt, b0, step_generator(0, step, DEVICE))
+            losses.append(m["loss"])
     losses = torch.stack(losses).cpu().numpy()
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
           f"20 steps on one batch: losses {losses[0]:.4f} ... {losses[-1]:.4f}")
@@ -2173,10 +2351,11 @@ def phase_bf16_serving(card, work: Path, ctx: dict) -> dict:
     # The main path through the CLI with no --precision: the card's default.
     out = work / "out_bf16"
     fbank_cuda.launches = 0
-    rc = cli.main(["--model_path", ctx["ckpt"], "--input_audio_file", str(wav),
-                   "--output_dir", str(out), "--thresholds", f"{thr}", "--min_lengths", "0.2",
-                   "--save_to_textgrid", "True", "--save_to_audio_files", "False",
-                   "--device", "cuda"])
+    with EPILOGUES.count("windows_bf16"):
+        rc = cli.main(["--model_path", ctx["ckpt"], "--input_audio_file", str(wav),
+                       "--output_dir", str(out), "--thresholds", f"{thr}", "--min_lengths", "0.2",
+                       "--save_to_textgrid", "True", "--save_to_audio_files", "False",
+                       "--device", "cuda"])
     torch.cuda.synchronize()
     launches = {"windows_bf16": fbank_cuda.launches}
     check(rc == 0, f"CLI (bf16 default) returned {rc}")
@@ -2220,7 +2399,8 @@ def phase_bf16_serving(card, work: Path, ctx: dict) -> dict:
     fpipe = inference.LaughterPipeline(model, device="cuda", settings=inference.settings_from_flags(
         device="cuda", mode="fused_conv"))
     fbank_cuda.launches = 0
-    fprobs, _ = fpipe.probs_for_file(str(wav))
+    with EPILOGUES.count("fused_conv_bf16"):
+        fprobs, _ = fpipe.probs_for_file(str(wav))
     launches["fused_conv_bf16"] = fbank_cuda.launches
     check(launches["fused_conv_bf16"] == 1, f"bf16 fused_conv: {fbank_cuda.launches} launches")
     check_probs(fprobs, ctx["probs"].shape, "bf16 fused_conv")
@@ -2239,7 +2419,7 @@ def phase_bf16_serving(card, work: Path, ctx: dict) -> dict:
     saved = work / "serve_bf16.npy"
     stdout = io.StringIO()
     fbank_cuda.launches = 0
-    with contextlib.redirect_stdout(stdout):
+    with contextlib.redirect_stdout(stdout), EPILOGUES.count("serve_bf16"):
         rc = serve.main(["--model_path", ctx["ckpt"], "--input", str(wav), "--threshold",
                          str(thr), "--min_length", "0.2", "--chunk_ms", "250", "--save_probs",
                          str(saved), "--device", "cuda"])
@@ -2263,7 +2443,8 @@ def phase_bf16_serving(card, work: Path, ctx: dict) -> dict:
     spipe = ShardedPipeline(model, settings=settings, device="cuda")
     spipe.probs_for_waveforms(chans)
     fbank_cuda.launches = 0
-    rows = spipe.probs_for_waveforms(chans)
+    with EPILOGUES.count("multichannel_bf16"):
+        rows = spipe.probs_for_waveforms(chans)
     launches["multichannel_bf16"] = fbank_cuda.launches
     check(launches["multichannel_bf16"] == n_buckets,
           f"bf16 multichannel: {launches['multichannel_bf16']} launches")
@@ -2292,7 +2473,7 @@ def phase_bf16_serving(card, work: Path, ctx: dict) -> dict:
     tdir, adir, paths = ctx["corpus"]
     text = io.StringIO()
     fbank_cuda.launches = 0
-    with contextlib.redirect_stdout(text):
+    with contextlib.redirect_stdout(text), EPILOGUES.count("sweep_bf16"):
         rc = sweep.main(["--audio_dir", str(adir), "--transcript_dir", str(tdir), "--output_dir",
                          str(work / "sweep_bf16"), "--split", "all", "--model_path", ctx["ckpt"],
                          "--device", "cuda"])
@@ -2319,7 +2500,8 @@ def phase_bf16_serving(card, work: Path, ctx: dict) -> dict:
                 n_grids += 1
     print(f"bf16 sweep of phase 8's corpus (default precision): {n_grids} TextGrids equal the "
           f"smoothing of the in-process bf16 ShardedPipeline; {launches['sweep_bf16']} launches "
-          f"(as the float32 sweep's); "
+          f"(as the float32 sweep's), the conv epilogue {EPILOGUES.by_path['sweep_bf16']} "
+          f"(the float32 sweep: {EPILOGUES.by_path['sweep']}); "
           f"{float(got[1]):.2f} audio-s per wall-s end to end, {float(got[2]):.2f} inference only "
           f"on {card} (float32: phase 8)")
     return launches
@@ -2432,9 +2614,10 @@ def phase_bf16_train(card, work: Path, ctx: dict) -> None:
     # (b) 20 steps at dropout 0.5 on one batch.
     t = trainer(0.5, DEVICE)
     opt, losses = t.init(), []
-    for step in range(20):
-        opt, m = t.train_batch(opt, b0, step_generator(0, step, DEVICE))
-        losses.append(m["loss"])
+    with EPILOGUES.count("train_steps_bf16"):
+        for step in range(20):
+            opt, m = t.train_batch(opt, b0, step_generator(0, step, DEVICE))
+            losses.append(m["loss"])
     losses = torch.stack(losses).cpu().numpy()
     check(bool(np.isfinite(losses).all()) and losses[-1] < losses[0],
           f"bf16, 20 steps on one batch: losses {losses[0]:.4f} ... {losses[-1]:.4f}")
@@ -2522,9 +2705,10 @@ art = export.load(art_path)
 pcm = np.load(wav_npy)
 geo = host_prep.BucketGeometry(bucket_frames=bucket)
 buckets = list(host_prep.bucket_inputs(pcm, settings=geo))
-export.fbank_cuda.launches = 0
+from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda  # export imported it
+export.fbank_cuda.launches = bn_act_cuda.launches = 0
 probs = torch.cat([art.call(buf, valid)[:n] for buf, valid, n in buckets]).cpu().numpy()
-launches = export.fbank_cuda.launches
+launches, epilogues = export.fbank_cuda.launches, bn_act_cuda.launches
 np.save(out_npy, probs)
 bufs = [(torch.from_numpy(b).cuda(), torch.tensor(v, device="cuda")) for b, v, _ in buckets]
 for b, v in bufs:
@@ -2538,7 +2722,8 @@ for _ in range(3):
     torch.cuda.synchronize()
     per.append(1e3 * (time.perf_counter() - t0) / len(bufs))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pandas", "lxml"))
-print(json.dumps({"launches": launches, "buckets": len(buckets), "ms_per_bucket": per,
+print(json.dumps({"launches": launches, "epilogues": epilogues, "buckets": len(buckets),
+                  "ms_per_bucket": per,
                   "precision": art.precision, "device": str(art.device), "forbidden": loaded}))
 """
 
@@ -2605,6 +2790,8 @@ def phase_export(card, work: Path, ctx: dict) -> int:
     got = np.load(work / "e2e_probs.npy")
     pipe = inference.LaughterPipeline(model, device="cuda", settings=inference.InferenceSettings(
         chunk=6144, bucket_frames=6144))  # the artifact's settings, float32
+    EPILOGUES.check("e2e_artifact", res["epilogues"],
+                    n_buckets * convs_per_bucket(model, pipe.settings, pipe.shared_stem))
     want = pipe.probs_for_waveform(ctx["pcm"])
     d_e2e = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
     check(d_e2e <= 1e-6, f"e2e artifact vs LaughterPipeline: {d_e2e:.3e} > 1e-6")
@@ -2620,7 +2807,8 @@ def phase_export(card, work: Path, ctx: dict) -> int:
         live_ms.append(1e3 * (time.perf_counter() - t0) / len(bufs))
     print(f"e2e artifact ({path.stat().st_size:,} bytes; {said.splitlines()[-1]}) in a fresh "
           f"process that imports only export and host_prep (no jax, pandas or lxml loaded): "
-          f"{res['launches']} fbank launches for {res['buckets']} buckets; "
+          f"{res['launches']} fbank launches for {res['buckets']} buckets, "
+          f"{res['epilogues']} of the conv epilogue; "
           + ("bit-equal to" if d_e2e == 0 else f"max |diff| {d_e2e:.3e} (limit 1e-6) from")
           + f" LaughterPipeline.probs_for_waveform; {min(res['ms_per_bucket']):.3f} ms a bucket "
           f"(host clock, best of 3, the buffers on the card) vs the live pipeline's "
@@ -3127,7 +3315,7 @@ def phase_parity(card, work: Path, ctx: dict) -> dict:
         parity._check_features = counted
         fbank_cuda.launches = 0
         try:
-            with contextlib.redirect_stdout(io.StringIO()) as text:
+            with contextlib.redirect_stdout(io.StringIO()) as text, EPILOGUES.count("parity_run"):
                 rc = parity.main(inputs.argv(PARITY_GOLDENS) + [
                     "--device", "cuda", "--prob_atol", str(PARITY_PROB_ATOL),
                     "--out", str(report_path)])
@@ -3164,7 +3352,8 @@ def phase_parity(card, work: Path, ctx: dict) -> dict:
         print(f"parity CLI on {card} against the JAX goldens: 5 pass, 0 skipped; the smallest "
               f"margin of a card probability to a grid threshold {margin:.3e} (limit "
               f"{parity_inputs.MARGIN:g}); fbank launches: features {feature_launches[0]} "
-              f"({n_files} files), the run {run_launches}")
+              f"({n_files} files), the run {run_launches}; the conv epilogue "
+              f"{EPILOGUES.by_path['parity_run']} in the run")
 
         # (c) laughs_to_wav on phase 4's TextGrid and audio.
         grid = work / "out" / f"t_{ctx['thr']}" / "l_0.2" / "meeting.TextGrid"
@@ -3467,8 +3656,9 @@ def main(through: int = 17) -> int:
         card, kind, peak = phase_device()
         header("2. build")
         block_frames = phase_build()
-        header("3. fbank kernel vs its plain version")
+        header("3. the kernels vs their plain versions")
         entry = phase_kernel(card, peak, block_frames)
+        epilogue = phase_epilogue(card, peak)
         header("4. main path")
         ctx = phase_main_path(card, work)
         header("5. fused_conv")
@@ -3538,9 +3728,14 @@ def main(through: int = 17) -> int:
     entry = {"name": entry.pop("name"), "route": entry.pop("route"),
              "source": entry.pop("source"), "replaces": entry.pop("replaces"),
              "launches": swept["launches"], **entry, "launches_by_path": by_path}
+    by_path = EPILOGUES.by_path
+    print("conv epilogue launches per path (each the convs its classify steps run): "
+          + ", ".join(f"{k} {v}" for k, v in by_path.items()))
+    epilogue = {**{k: epilogue.pop(k) for k in ("name", "route", "source", "replaces")},
+                "launches": by_path["sweep_bf16"], **epilogue, "launches_by_path": by_path}
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, epilogue]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

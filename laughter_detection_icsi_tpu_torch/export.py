@@ -24,8 +24,10 @@ An artifact holds its tensors on the device it was exported on
 (``device=``, default ``cuda``).  Backend flags are process state, not part
 of a program, so :func:`load` returns an :class:`Artifact` that runs the
 program inside its precision's scope (``inference.precision_scope``):
-TF32 off, and for bf16 cuBLAS's bf16 reductions in float32.  The custom op
-is registered when this module is imported, before any artifact loads.
+TF32 off, and for bf16 cuBLAS's bf16 reductions in float32.  The custom
+ops (the fbank's, and on the card the conv epilogue's that
+``models/layers.conv_bn_act`` calls) are registered when this module is
+imported, before any artifact loads.
 """
 
 from __future__ import annotations

@@ -36,6 +36,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+# Registers torch.ops.laughter_icsi_torch.bn_act, conv_bn_act's kernel.
+from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda  # noqa: F401
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
@@ -66,6 +69,33 @@ def conv_bias(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     """[B, in] x weight [out, in] + bias."""
     return x @ lin.weight.T + lin.bias
+
+
+def conv_bn_act(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.Module],
+                train: bool = False, relu: bool = True,
+                residual: Optional[torch.Tensor] = None, stride: Pair = 1,
+                padding: Pair = 1, dilation: Pair = 1) -> torch.Tensor:
+    """``relu(batch_norm(conv2d(x)) + residual)``: a conv of the ResNet
+    family and what follows it, the ReLU only where ``relu``, the residual
+    only where given.  A CUDA tensor outside train mode takes one launch of
+    the epilogue kernel (ops/bn_act_cuda.py) after the library's conv; it
+    rounds as the composed chain does, so the two give the same bits.
+    Anything else (the CPU, train mode's batch statistics) runs the
+    composed chain, the plain version."""
+    kw = dict(stride=stride, padding=padding, dilation=dilation)
+    if train or not x.is_cuda:
+        y = batch_norm(conv2d(x, conv, **kw), bn, train)
+        if residual is not None:
+            y = y + residual
+        return torch.relu(y) if relu else y
+    # conv_bias's split: the library adds a float32 bias in its accumulator;
+    # below float32 the kernel adds it to the rounded product.
+    f32 = x.dtype == torch.float32
+    y = F.conv2d(x, conv.weight, conv.bias if f32 else None, **kw)
+    norm = ((None,) * 4 if bn is None
+            else (bn.weight, bn.bias, bn.running_mean, bn.running_var))
+    return torch.ops.laughter_icsi_torch.bn_act(
+        y, None if f32 else conv.bias, *norm, residual, relu, BN_EPS)
 
 
 def _rsqrt(v: torch.Tensor) -> torch.Tensor:

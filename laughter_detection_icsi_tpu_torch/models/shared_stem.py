@@ -71,14 +71,16 @@ def supports_track2(window: int) -> bool:
     return window % 2 == 0 and window // 2 > 2 * DEPTH2
 
 
-def _conv_rows(x: torch.Tensor, conv, pad: Tuple[int, int]) -> torch.Tensor:
-    """3x3 conv with one-sided time padding (full 'same' padding in F)."""
-    return L.conv2d(F.pad(x, (0, 0, pad[0], pad[1])), conv, stride=1, padding=(0, 1))
+def _conv_rows(x: torch.Tensor, conv, bn, pad: Tuple[int, int], **kw) -> torch.Tensor:
+    """3x3 conv with one-sided time padding (full 'same' padding in F),
+    then ``L.conv_bn_act``'s BN, residual and ReLU (``kw``)."""
+    return L.conv_bn_act(F.pad(x, (0, 0, pad[0], pad[1])), conv, bn, padding=(0, 1), **kw)
 
 
-def _conv_dil(x: torch.Tensor, conv) -> torch.Tensor:
-    """3x3 conv, stride 1, time dilation 2 ('same' in time)."""
-    return L.conv2d(x, conv, stride=1, padding=(2, 1), dilation=(2, 1))
+def _conv_dil(x: torch.Tensor, conv, bn, **kw) -> torch.Tensor:
+    """3x3 conv, stride 1, time dilation 2 ('same' in time), then
+    ``L.conv_bn_act``'s BN, residual and ReLU (``kw``)."""
+    return L.conv_bn_act(x, conv, bn, padding=(2, 1), dilation=(2, 1), **kw)
 
 
 def stem_track(model: ResNetFamily, feats: torch.Tensor) -> torch.Tensor:
@@ -104,14 +106,13 @@ def _band_stem(model: ResNetFamily, x: torch.Tensor, top: bool) -> torch.Tensor:
         # (rows are edge-aligned: drop n rows from the interior side).
         return v[:, :, : v.shape[2] - n] if top else v[:, :, n:]
 
-    x = torch.relu(L.batch_norm(_conv_rows(x, model.conv1, pad), model.bn1))
+    x = _conv_rows(x, model.conv1, model.bn1, pad)
     for blk in model.block1:
-        out = torch.relu(L.batch_norm(_conv_rows(x, blk.conv1, pad), blk.bn1))
-        out = L.batch_norm(_conv_rows(out, blk.conv2, pad), blk.bn2)
+        out = _conv_rows(x, blk.conv1, blk.bn1, pad)
         sc = crop(x, 2)
         if blk.shortcut is not None:
-            sc = L.batch_norm(L.conv2d(sc, blk.shortcut[0], 1, 0), blk.shortcut_bn())
-        x = torch.relu(out + sc)
+            sc = L.conv_bn_act(sc, blk.shortcut[0], blk.shortcut_bn(), relu=False, padding=0)
+        x = _conv_rows(out, blk.conv2, blk.bn2, pad, residual=sc)
     return x
 
 
@@ -125,17 +126,14 @@ def stem_track2(model: ResNetFamily, track1: torch.Tensor) -> torch.Tensor:
     the window interior (DEPTH2 <= m < H2 - DEPTH2)."""
     b0, b1 = model.block2
     x = track1.permute(1, 0, 2)[None]  # [1, C1, T, F]
-    out = torch.relu(
-        L.batch_norm(L.conv2d(x, b0.conv1, stride=(1, 2), padding=1), b0.bn1)
-    )
-    out = L.batch_norm(_conv_dil(out, b0.conv2), b0.bn2)
+    out = L.conv_bn_act(x, b0.conv1, b0.bn1, stride=(1, 2))
     # The stride-2 first block always has its shortcut (models/zoo.py).
-    sc = L.conv2d(x, b0.shortcut[0], stride=(1, 2), padding=0)
-    x = torch.relu(out + L.batch_norm(sc, b0.shortcut_bn()))
+    sc = L.conv_bn_act(x, b0.shortcut[0], b0.shortcut_bn(), relu=False, stride=(1, 2),
+                       padding=0)
+    x = _conv_dil(out, b0.conv2, b0.bn2, residual=sc)
 
-    out = torch.relu(L.batch_norm(_conv_dil(x, b1.conv1), b1.bn1))
-    out = L.batch_norm(_conv_dil(out, b1.conv2), b1.bn2)
-    x = torch.relu(out + x)
+    out = _conv_dil(x, b1.conv1, b1.bn1)
+    x = _conv_dil(out, b1.conv2, b1.bn2, residual=x)
     return x[0].permute(1, 0, 2).contiguous()  # [T, C2, F2]
 
 
@@ -155,18 +153,19 @@ def _band2(model: ResNetFamily, band1: torch.Tensor, strip: torch.Tensor,
 
     pad = (1, 0) if top else (0, 1)
     t0pad = (1, 0) if top else (0, 0)  # bottom centers touch no zero pad
-    out = L.conv2d(F.pad(x, (0, 0, *t0pad)), b0.conv1, stride=2, padding=(0, 1))
-    out = torch.relu(L.batch_norm(out, b0.bn1))  # rows: 9
-    out = L.batch_norm(_conv_rows(out, b0.conv2, pad), b0.bn2)  # 9 -> 8
+    out = L.conv_bn_act(F.pad(x, (0, 0, *t0pad)), b0.conv1, b0.bn1, stride=2,
+                        padding=(0, 1))  # rows: 9
     # Stride-2 1x1 shortcut: even window rows only — local rows 0, 2, ..
     # for the top edge; the bottom edge's even rows start at local row 3.
-    sc = L.conv2d(x if top else x[:, :, 3:], b0.shortcut[0], stride=2, padding=0)
-    sc = sc[:, :, : out.shape[2]] if top else sc[:, :, -out.shape[2]:]
-    x = torch.relu(out + L.batch_norm(sc, b0.shortcut_bn()))  # [B, C2, 8, F2]
+    sc = L.conv_bn_act(x if top else x[:, :, 3:], b0.shortcut[0], b0.shortcut_bn(),
+                       relu=False, stride=2, padding=0)
+    rows = out.shape[2] - 1  # the next conv's output: 9 -> 8
+    sc = sc[:, :, :rows] if top else sc[:, :, -rows:]
+    x = _conv_rows(out, b0.conv2, b0.bn2, pad, residual=sc)  # [B, C2, 8, F2]
 
-    out = torch.relu(L.batch_norm(_conv_rows(x, b1.conv1, pad), b1.bn1))  # 8 -> 7
-    out = L.batch_norm(_conv_rows(out, b1.conv2, pad), b1.bn2)  # 7 -> 6
-    return torch.relu(out + (x[:, :, :-2] if top else x[:, :, 2:]))
+    out = _conv_rows(x, b1.conv1, b1.bn1, pad)  # 8 -> 7
+    return _conv_rows(out, b1.conv2, b1.bn2, pad,  # 7 -> 6
+                      residual=x[:, :, :-2] if top else x[:, :, 2:])
 
 
 def _rows(base: torch.Tensor, offset: int, n: int, step: int = 1) -> torch.Tensor:

@@ -53,15 +53,12 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         train = self.training
-        out = L.conv2d(x, self.conv1, stride=self.stride, padding=1)
-        out = torch.relu(L.batch_norm(out, self.bn1, train))
-        out = L.batch_norm(L.conv2d(out, self.conv2, stride=1, padding=1), self.bn2, train)
+        out = L.conv_bn_act(x, self.conv1, self.bn1, train, stride=self.stride)
+        sc = x
         if self.shortcut is not None:
-            sc = L.conv2d(x, self.shortcut[0], stride=self.stride, padding=0)
-            sc = L.batch_norm(sc, self.shortcut_bn(), train)
-        else:
-            sc = x
-        return torch.relu(out + sc)
+            sc = L.conv_bn_act(x, self.shortcut[0], self.shortcut_bn(), train, relu=False,
+                               stride=self.stride, padding=0)
+        return L.conv_bn_act(out, self.conv2, self.bn2, train, residual=sc)
 
 
 def _stage(in_ch: int, out_ch: int, stride: int, with_bn: bool) -> nn.Sequential:
@@ -111,7 +108,7 @@ class ResNetFamily(nn.Module):
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
         """conv1 -> BN -> ReLU."""
-        return torch.relu(L.batch_norm(L.conv2d(x, self.conv1, 1, 1), self.bn1, self.training))
+        return L.conv_bn_act(x, self.conv1, self.bn1, self.training)
 
     def tail(self, x: torch.Tensor, first_stage: int,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:

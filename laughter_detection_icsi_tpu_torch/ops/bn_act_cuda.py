@@ -1,0 +1,115 @@
+"""The eval conv epilogue: hand-written CUDA for Hopper, bound with ctypes
+and registered as a custom op.
+
+The op ``torch.ops.laughter_icsi_torch.bn_act`` (registered when this
+module is imported) computes ``relu(bn(y + bias) + residual)`` on a conv's
+NCHW output ``y`` in one pass, each term optional: the conv bias, eval
+BatchNorm from its raw tensors (``models/layers.batch_norm``'s expression),
+a residual of ``y``'s shape (a strided view is fine) and the ReLU.  Each
+step rounds to ``y``'s dtype as the eager chain of PyTorch ops does, so
+the output equals that chain's bit for bit (``csrc/bn_act.cu`` says how).
+``models/layers.conv_bn_act`` calls it for a CUDA tensor outside train
+mode, and the composed chain otherwise: that chain is the plain version,
+which the CPU tests and the comparison with the JAX package run.
+
+The op has a kernel for CUDA tensors only; an exported graph
+(``export.py``) calls it as the live model does.
+A CUDA tensor the kernel does not take raises.  The op's fake gives the
+output's shape, which lets ``torch.export`` trace it.  The kernel is built
+on first use by ``ops/nvcc.py``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from laughter_detection_icsi_tpu_torch.ops import nvcc
+
+#: Kernel launches so far (the wrapper adds one per launch, nowhere else):
+#: lets a run show that its main path went through the kernel.
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The C entry point's flags.
+_BIAS, _NORM, _RESIDUAL, _RELU = 1, 2, 4, 8
+
+
+def build():
+    """Compile ``csrc/bn_act.cu`` unless this source is already built.
+    Returns the library's path."""
+    return nvcc.build("bn_act.cu")
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.bn_act_launch.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, ll, ll,
+                                  i, i, f, i, p]
+    lib.bn_act_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check(y: torch.Tensor, name: str, t: Optional[torch.Tensor], shape) -> None:
+    if t is None:
+        return
+    if t.device != y.device or t.dtype != y.dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"bn_act: {name} must be {y.dtype} {tuple(shape)} on {y.device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+@torch.library.custom_op("laughter_icsi_torch::bn_act", mutates_args=(), device_types="cuda")
+def _bn_act_launch(
+    y: torch.Tensor, bias: Optional[torch.Tensor], weight: Optional[torch.Tensor],
+    shift: Optional[torch.Tensor], mean: Optional[torch.Tensor], var: Optional[torch.Tensor],
+    residual: Optional[torch.Tensor], relu: bool, eps: float,
+) -> torch.Tensor:
+    """The op on a CUDA tensor: one launch of the kernel (built on first
+    use), counted in ``launches``.  ``weight``, ``shift`` (BN's bias),
+    ``mean`` and ``var`` come together or not at all."""
+    global launches
+    if y.dtype not in _DTYPES:
+        raise TypeError(f"bn_act takes float32 or bfloat16, got {y.dtype}")
+    if y.ndim != 4 or not y.is_contiguous():
+        raise ValueError(f"bn_act wants a contiguous NCHW y, got shape {tuple(y.shape)} "
+                         f"strides {y.stride()}")
+    norm = (weight, shift, mean, var)
+    if any(t is None for t in norm) != all(t is None for t in norm):
+        raise ValueError("bn_act: weight, shift, mean and var come together or not at all")
+    n, c, h, w = y.shape
+    for name, t in (("bias", bias), ("weight", weight), ("shift", shift), ("mean", mean),
+                    ("var", var)):
+        _check(y, name, t, (c,))
+    _check(y, "residual", residual, y.shape)
+    out = torch.empty_like(y)
+    if y.numel() == 0:
+        return out
+    if y.numel() >= 2**31:
+        raise ValueError(f"bn_act takes fewer than 2**31 elements, got {y.numel()}")
+    flags = ((_BIAS if bias is not None else 0) | (_NORM if var is not None else 0)
+             | (_RESIDUAL if residual is not None else 0) | (_RELU if relu else 0))
+    wide = y.data_ptr() % 16 == 0  # out is a fresh allocation: aligned
+    rs = residual.stride() if residual is not None else (0, 0, 0, 0)
+    dense = (residual is not None and wide and rs == y.stride()
+             and residual.data_ptr() % 16 == 0)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    with torch.cuda.device(y.device):
+        err = _library().bn_act_launch(
+            _DTYPES[y.dtype], y.data_ptr(), out.data_ptr(), ptr(bias), ptr(weight),
+            ptr(shift), ptr(mean), ptr(var), ptr(residual), n, c, h, w, *rs, int(dense),
+            flags, eps, int(wide), torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bn_act kernel launch failed (cudaError {err})")
+    launches += 1
+    return out
+
+
+@_bn_act_launch.register_fake
+def _bn_act_fake(y, bias, weight, shift, mean, var, residual, relu, eps) -> torch.Tensor:
+    """``y``'s shape and dtype."""
+    return torch.empty_like(y)

@@ -12,10 +12,9 @@ version, ``ops/fbank.fbank``.  There is no fallback between the two: a CUDA
 tensor the kernel does not take raises.  The op's fake gives the output's
 shape from the input's alone, which lets ``torch.export`` trace it.
 
-The kernel is built on first use with ``nvcc`` into ``build/torch_kernels/``
-at the root of the checkout, as a shared library with a plain C interface
-(no PyTorch headers, so the build takes seconds), keyed on a hash of the
-source and flags, and loaded with ``ctypes``.
+The kernel is built on first use with ``nvcc`` (``ops/nvcc.py``) into
+``build/torch_kernels/`` at the root of the checkout, as a shared library
+with a plain C interface, and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -23,10 +22,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import subprocess
-import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -35,17 +30,12 @@ import torch
 from laughter_detection_icsi_tpu_torch.config import FEAT, FeatConfig
 from laughter_detection_icsi_tpu_torch.host_prep import num_frames
 from laughter_detection_icsi_tpu_torch.ops import fbank as fbank_ops
+from laughter_detection_icsi_tpu_torch.ops import nvcc
 
 #: Kernel launches so far (the wrapper adds one per launch, nowhere else):
 #: lets a run show that its main path went through the kernel.
 launches = 0
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fbank.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 #: Compile-time shape of the kernel (csrc/fbank.cu): 256 DFT bins (a
 #: 512-point FFT), 16-row basis tiles (``fbank_launch`` refuses a basis
 #: depth off this multiple).
@@ -53,43 +43,10 @@ N_BINS = 256
 TILE_K = 16
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME  # resolves the toolkit
-
-    if CUDA_HOME is None:
-        raise RuntimeError("building the fbank kernel needs the CUDA toolkit (nvcc)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def library_path() -> Path:
-    """Where the built kernel lives: keyed on the source and the flags."""
-    key = hashlib.sha256(_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfbank_{key.hexdigest()[:16]}.so"
-
-
 def build() -> Path:
-    """Compile ``csrc/fbank.cu`` unless this source is already built.
-    nvcc's report (registers, shared memory, spills) is kept beside the
-    library as ``.log``.  Returns the library's path."""
-    lib = library_path()
-    if lib.is_file():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)],
-            capture_output=True, text=True,
-        )
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+    """Compile ``csrc/fbank.cu`` unless this source is already built
+    (``ops/nvcc.build``).  Returns the library's path."""
+    return nvcc.build("fbank.cu")
 
 
 @functools.lru_cache(maxsize=1)

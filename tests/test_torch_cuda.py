@@ -401,3 +401,216 @@ def test_cuda_ms_times_the_device(card):
     got = timing.cuda_ms(lambda: torch.cuda._sleep(cycles), iters=20)
     want = cycles / (mhz * 1e3)
     assert abs(got - want) <= 0.2 * want, (got, want, mhz)
+
+
+# --------------------------------------------------------------------------- #
+# The conv epilogue (ops/bn_act_cuda.py)
+# --------------------------------------------------------------------------- #
+
+#: The sweep cell's conv outputs (stem 64, filter_sizes (64, 32, 16, 16),
+#: 44 mel bins, bucket 6144): a window-edge band, the whole-track stem and
+#: the strided tail's stage 3.
+EPILOGUE_SHAPES = {"band": (6144, 64, 7, 44), "track": (1, 64, 6243, 44),
+                   "tail": (6144, 16, 25, 11)}
+#: Each call site's form: (conv bias, BatchNorm, residual, ReLU).
+EPILOGUE_FORMS = {
+    "stem: no bias, BN, ReLU": (False, True, None, True),
+    "conv1: bias, BN, ReLU": (True, True, None, True),
+    "shortcut: no bias, BN": (False, True, None, False),
+    "conv2: bias, BN, contiguous residual, ReLU": (True, True, "contiguous", True),
+    "band conv2: bias, BN, strided residual, ReLU": (True, True, "strided", True),
+    "no BN: bias, strided residual, ReLU": (True, False, "strided", True),
+}
+
+
+def _bn(c, gen, dtype, card):
+    bn = torch.nn.BatchNorm2d(c)
+    with torch.no_grad():
+        bn.weight.uniform_(0.7, 1.3, generator=gen)
+        bn.bias.normal_(0.0, 0.1, generator=gen)
+        bn.running_mean.normal_(0.0, 0.3, generator=gen)
+        bn.running_var.uniform_(0.5, 2.0, generator=gen)
+    return bn.to(card, dtype).eval()
+
+
+def _composed(x, conv, bn, train=False, relu=True, residual=None, **kw):
+    """``layers.conv_bn_act``'s plain version, on whatever device ``x``
+    is: the chain of eager ops the kernel replaces."""
+    from laughter_detection_icsi_tpu_torch.models import layers as L
+
+    y = L.batch_norm(L.conv2d(x, conv, **kw), bn, train)
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y) if relu else y
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("where", list(EPILOGUE_SHAPES))
+@pytest.mark.parametrize("form", list(EPILOGUE_FORMS))
+def test_conv_bn_act_equals_the_composed_chain_bit_for_bit(card, dtype, where, form):
+    """``layers.conv_bn_act`` on the card (cuDNN's conv, then one launch of
+    the epilogue) gives the composed chain's bits on the card, at the sweep
+    cell's shapes, in bf16 and float32."""
+    from laughter_detection_icsi_tpu_torch.models import layers as L
+    from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda
+
+    has_bias, has_bn, residual, relu = EPILOGUE_FORMS[form]
+    n, c, h, w = EPILOGUE_SHAPES[where]
+    gen = torch.Generator().manual_seed(7)
+    conv = torch.nn.Conv2d(c, c, 3, bias=has_bias)
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.uniform_(-0.05, 0.05, generator=gen)
+    conv = conv.to(card, dtype)
+    bn = _bn(c, gen, dtype, card) if has_bn else None
+    x = torch.randn((n, c, h, w), generator=gen).to(card, dtype)
+    res = None
+    if residual == "contiguous":
+        res = torch.randn((n, c, h, w), generator=gen).to(card, dtype)
+    elif residual == "strided":  # shared_stem's crop(x, 2) of a taller band
+        res = torch.randn((n, c, h + 2, w), generator=gen).to(card, dtype)[:, :, 2:]
+    with torch.inference_mode(), inference.strict_fp32():
+        before = bn_act_cuda.launches
+        got = L.conv_bn_act(x, conv, bn, relu=relu, residual=res)
+        assert bn_act_cuda.launches - before == 1
+        want = _composed(x, conv, bn, relu=relu, residual=res)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_bn_act_op_on_special_values_and_odd_layouts(card, dtype):
+    """The op alone against the eager chain on the card: NaN, infinities
+    and signed zeros in ``y``, a plane size that is no multiple of the
+    16-byte vector (the ragged end), a ``y`` off 16-byte alignment (the
+    scalar path) and a zero-variance channel; the op's fake and
+    ``torch.library.opcheck``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda  # noqa: F401
+
+    gen = torch.Generator().manual_seed(8)
+    c = 5
+    bn = _bn(c, gen, dtype, card)
+    with torch.no_grad():
+        bn.running_var[2] = 0.0
+    bias = torch.randn(c, generator=gen).to(card, dtype)
+    base = torch.randn(3 * c * 7 * 9 + 1, generator=gen).to(card, dtype)
+    base[:8] = torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-30,
+                             -1e-30, 3.0])
+    for y in (base[:-1].view(3, c, 7, 9), base[1:].view(3, c, 7, 9)):  # aligned, then not
+        res = torch.randn((3, c, 9, 9), generator=gen).to(card, dtype)[:, :, 1:-1]
+        args = (y, bias, bn.weight, bn.bias, bn.running_mean, bn.running_var, res, True,
+                1e-5)
+        got = torch.ops.laughter_icsi_torch.bn_act(*args)
+        inv = torch.rsqrt((bn.running_var + 1e-5).float()).to(dtype)
+        shape = (1, -1, 1, 1)
+        want = y + bias.reshape(shape)
+        want = (want - bn.running_mean.reshape(shape)) * (bn.weight * inv).reshape(shape)
+        want = torch.relu(want + bn.bias.reshape(shape) + res)
+        assert torch.equal(_bits(got), _bits(want)), (got - want).abs().max()
+    with FakeTensorMode() as mode:
+        fake = torch.ops.laughter_icsi_torch.bn_act(
+            *(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args))
+    assert fake.shape == got.shape and fake.dtype == got.dtype
+    # The op has no autograd formula (eval only): check it on tensors that
+    # need no gradient.
+    args = tuple(a.detach() if isinstance(a, torch.Tensor) else a for a in args)
+    torch.library.opcheck(torch.ops.laughter_icsi_torch.bn_act.default, args)
+
+
+@pytest.mark.cuda
+def test_bn_act_refuses_what_it_does_not_take(card):
+    y = torch.zeros((2, 3, 4, 5), device=card)
+    op = torch.ops.laughter_icsi_torch.bn_act
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        op(y.half(), None, None, None, None, None, None, True, 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        op(y.transpose(2, 3), None, None, None, None, None, None, True, 1e-5)
+    with pytest.raises(ValueError, match="together"):
+        op(y, None, torch.ones(3, device=card), None, None, None, None, True, 1e-5)
+    with pytest.raises(ValueError, match="residual"):
+        op(y, None, None, None, None, None, y[:, :, :3], True, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_eval_after_a_train_step_matches_the_composed_chain(card, dtype, monkeypatch):
+    """Eval, a train-mode forward (BatchNorm's running statistics move in
+    place), eval again: each eval forward through the kernel equals the
+    composed chain's on the card, so no per-channel term outlives the
+    statistics it came from.  The train forward launches nothing."""
+    from laughter_detection_icsi_tpu_torch.models import layers as L
+    from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda
+
+    model = zoo.build("ResNetBigger", dropout_rate=0.0, linear_layer_size=48).to(card, dtype)
+    x = torch.from_numpy(_wave((16, 1, 100, 44), seed=13) * 10).to(card, dtype)
+
+    def both():
+        with torch.no_grad(), inference.strict_fp32():
+            fused = model.eval()(x)
+            with monkeypatch.context() as m:
+                m.setattr(L, "conv_bn_act", _composed)
+                plain = model(x)
+        return fused, plain
+
+    first = both()
+    before = bn_act_cuda.launches
+    with torch.no_grad(), inference.strict_fp32():
+        model.train()(x)
+    assert bn_act_cuda.launches == before
+    second = both()
+    for fused, plain in (first, second):
+        assert torch.equal(_bits(fused), _bits(plain))
+    assert not torch.equal(first[0], second[0])  # the statistics did move
+
+
+@pytest.mark.cuda
+def test_classify_bucket_launches_the_epilogue_once_a_conv(card):
+    """The preset's bf16 classify step with stage-2 sharing, one chunk a
+    bucket: 40 launches (stem and stage 1 over the track 5, stage 2 over
+    the track 5, two edge bands of 5 + 5 convs, stages 3-4 of the strided
+    tail 10), equal to the composed chain's bits; the same naive window
+    batch in train mode launches none."""
+    from laughter_detection_icsi_tpu_torch.models import layers as L
+    from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda
+
+    model = inference.cast_model_bf16(zoo.build("ResNetBigger", linear_layer_size=48)).to(card)
+    settings = inference.InferenceSettings(chunk=256, bucket_frames=256, precision="bfloat16")
+    feats = torch.from_numpy(_wave((256 + 99, 44), seed=14) * 10).to(card)
+    with torch.inference_mode():
+        before = bn_act_cuda.launches
+        got = inference.classify_bucket(model, feats, 300, settings, use_shared_stem=True)
+        assert bn_act_cuda.launches - before == 40
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(L, "conv_bn_act", _composed)
+            want = inference.classify_bucket(model, feats, 300, settings, use_shared_stem=True)
+        assert torch.equal(got, want)
+        model.dropout_rate = 0.0
+        model.train()
+        before = bn_act_cuda.launches
+        inference.classify_bucket(model, feats, 300, settings, use_shared_stem=False)
+        assert bn_act_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,atol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_shared_stem_matches_naive_windows_with_the_epilogue(card, precision, atol):
+    """The preset-width pipeline on the card through the epilogue: the
+    shared stem within chip_smoke's 1e-5 of the naive window batch in
+    float32 (test_torch_precision's 2e-2 in bf16)."""
+    model = zoo.build("ResNetBigger", linear_layer_size=48)
+    wave = (_wave(16000 * 6 + 777, seed=15) * 32767 / 4).astype(np.int16)
+    run = {}
+    for shared in (None, False):
+        settings = inference.InferenceSettings(chunk=128, bucket_frames=256, precision=precision,
+                                               shared_stem=shared)
+        run[shared] = inference.LaughterPipeline(model, settings=settings,
+                                                 device=card).probs_for_waveform(wave)
+    np.testing.assert_allclose(run[None], run[False], rtol=0, atol=atol)

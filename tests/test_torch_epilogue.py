@@ -1,0 +1,188 @@
+"""``layers.conv_bn_act`` on the CPU: its composed chain is, bit for bit,
+the inline expressions each call site of the zoo and the shared stem
+wrote before the epilogue kernel existed, in bf16 and float32; and the
+kernel's custom op exports with its fake.  The kernel itself runs on the
+card only (tests/test_torch_cuda.py holds it against this chain there).
+"""
+
+import copy
+
+import pytest
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from laughter_detection_icsi_tpu_torch.models import layers as L
+from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda
+
+
+def _modules(cin, cout, k, bias, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    conv = nn.Conv2d(cin, cout, k, bias=bias)
+    bn = nn.BatchNorm2d(cout)
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.uniform_(-0.3, 0.3, generator=gen)
+        bn.weight.uniform_(0.7, 1.3, generator=gen)
+        bn.bias.normal_(0.0, 0.1, generator=gen)
+        bn.running_mean.normal_(0.0, 0.3, generator=gen)
+        bn.running_var.uniform_(0.5, 2.0, generator=gen)
+    return conv.to(dtype), bn.to(dtype).eval()
+
+
+def _x(shape, dtype, seed):
+    return torch.randn(shape, generator=torch.Generator().manual_seed(seed)).to(dtype)
+
+
+def _crop(v, n):
+    return v[:, :, n:]
+
+
+# Each form: (conv in, out, kernel, bias) and a pair of functions of
+# (x, conv, bn, train) -> (the inline expression, the conv_bn_act call).
+FORMS = {
+    "zoo stem": ((1, 8, 3, False), (
+        lambda x, c, b, t: torch.relu(L.batch_norm(L.conv2d(x, c, 1, 1), b, t)),
+        lambda x, c, b, t: L.conv_bn_act(x, c, b, t))),
+    "block conv1, stride 2": ((8, 8, 3, True), (
+        lambda x, c, b, t: torch.relu(L.batch_norm(L.conv2d(x, c, stride=2, padding=1), b, t)),
+        lambda x, c, b, t: L.conv_bn_act(x, c, b, t, stride=2))),
+    "block conv2 + identity": ((8, 8, 3, True), (
+        lambda x, c, b, t: torch.relu(
+            L.batch_norm(L.conv2d(x, c, stride=1, padding=1), b, t) + x),
+        lambda x, c, b, t: L.conv_bn_act(x, c, b, t, residual=x))),
+    "shortcut, 1x1 stride 2": ((8, 8, 1, False), (
+        lambda x, c, b, t: L.batch_norm(L.conv2d(x, c, stride=2, padding=0), b, t),
+        lambda x, c, b, t: L.conv_bn_act(x, c, b, t, relu=False, stride=2, padding=0))),
+    "band rows + cropped residual": ((8, 8, 3, True), (
+        lambda x, c, b, t: torch.relu(L.batch_norm(
+            L.conv2d(F.pad(x, (0, 0, 1, 0)), c, stride=1, padding=(0, 1)), b, t)
+            + _crop(x, 1)),
+        lambda x, c, b, t: L.conv_bn_act(F.pad(x, (0, 0, 1, 0)), c, b, t, padding=(0, 1),
+                                         residual=_crop(x, 1)))),
+    "band2 conv1, stride 2": ((8, 8, 3, True), (
+        lambda x, c, b, t: torch.relu(L.batch_norm(
+            L.conv2d(F.pad(x, (0, 0, 1, 0)), c, stride=2, padding=(0, 1)), b, t)),
+        lambda x, c, b, t: L.conv_bn_act(F.pad(x, (0, 0, 1, 0)), c, b, t, stride=2,
+                                         padding=(0, 1)))),
+    "track2 dilated": ((8, 8, 3, True), (
+        lambda x, c, b, t: torch.relu(L.batch_norm(
+            L.conv2d(x, c, stride=1, padding=(2, 1), dilation=(2, 1)), b, t)),
+        lambda x, c, b, t: L.conv_bn_act(x, c, b, t, padding=(2, 1), dilation=(2, 1)))),
+    "track2 stride (1, 2)": ((8, 8, 3, True), (
+        lambda x, c, b, t: torch.relu(
+            L.batch_norm(L.conv2d(x, c, stride=(1, 2), padding=1), b, t)),
+        lambda x, c, b, t: L.conv_bn_act(x, c, b, t, stride=(1, 2)))),
+    "no BatchNorm": ((8, 8, 3, True), (
+        lambda x, c, b, t: torch.relu(L.batch_norm(L.conv2d(x, c, 1, 1), None, t) + x),
+        lambda x, c, b, t: L.conv_bn_act(x, c, None, t, residual=x))),
+}
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_composed_path_is_the_inline_expression(form, dtype, train):
+    (cin, cout, k, bias), (inline, fused) = FORMS[form]
+    conv, bn = _modules(cin, cout, k, bias, dtype, seed=len(form))
+    x = _x((3, cin, 12, 10), dtype, seed=len(form) + 1)
+    bn_a, bn_b = bn.train(train), copy.deepcopy(bn).train(train)
+    before = bn_act_cuda.launches
+    with torch.no_grad():
+        want = inline(x, conv, bn_a, train)
+        got = fused(x, conv, bn_b, train)
+    assert bn_act_cuda.launches == before
+    assert got.dtype == dtype and torch.equal(got, want)
+    for name in ("running_mean", "running_var", "num_batches_tracked"):
+        assert torch.equal(getattr(bn_b, name), getattr(bn_a, name)), name
+
+
+def test_the_op_has_no_cpu_kernel():
+    """The composed chain is the CPU's path; the op itself refuses a CPU
+    tensor rather than fall back."""
+    with pytest.raises(NotImplementedError):
+        torch.ops.laughter_icsi_torch.bn_act(torch.zeros(1, 2, 3, 4), None, None, None, None,
+                                             None, None, True, 1e-5)
+
+
+class _Epilogue(nn.Module):
+    def __init__(self, c):
+        super().__init__()
+        self.conv, self.bn = _modules(c, c, 3, True, torch.bfloat16, seed=3)
+
+    def forward(self, y, residual):
+        bn = self.bn
+        return torch.ops.laughter_icsi_torch.bn_act(
+            y, self.conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+            residual[:, :, 1:], True, L.BN_EPS)
+
+
+def test_the_op_exports_with_its_fake():
+    """``torch.export`` traces the op through its fake, with a symbolic
+    batch and a strided residual: the node keeps ``y``'s shape and dtype."""
+    y = _x((4, 6, 5, 7), torch.bfloat16, seed=4)
+    res = _x((4, 6, 6, 7), torch.bfloat16, seed=5)
+    b = torch.export.Dim("b", min=2)
+    with torch.no_grad():
+        ep = torch.export.export(_Epilogue(6), (y, res),
+                                 dynamic_shapes={"y": {0: b}, "residual": {0: b}})
+    nodes = [n for n in ep.graph.nodes
+             if n.target is torch.ops.laughter_icsi_torch.bn_act.default]
+    assert len(nodes) == 1
+    val = nodes[0].meta["val"]
+    assert val.dtype == torch.bfloat16 and tuple(val.shape[1:]) == (6, 5, 7)
+    assert isinstance(val.shape[0], torch.SymInt)
+
+
+@pytest.mark.parametrize("window,shared", [(100, True), (99, True), (100, False)],
+                         ids=["stage-2 sharing", "stage-1 sharing", "naive windows"])
+def test_chip_smoke_owes_one_launch_for_each_conv_a_classify_step_runs(window, shared):
+    """The launches chip_smoke.py holds each path's count to: its
+    ``convs_per_bucket`` equals the ``conv_bn_act`` calls one classify
+    step makes, two chunks a bucket, with and without the shared stem."""
+    import runpy
+
+    from laughter_detection_icsi_tpu_torch import inference
+    from laughter_detection_icsi_tpu_torch.models import zoo
+    from tests.test_torch_import import REPO
+
+    owed = runpy.run_path(str(REPO / "chip_smoke.py"), run_name="chip_smoke_probe")
+    model = zoo.build("ResNetBigger", linear_layer_size=48).eval()
+    settings = inference.InferenceSettings(chunk=8, bucket_frames=16, window=window)
+    feats = _x((16 + window - 1, 44), torch.float32, seed=5)
+    calls = []
+    real = L.conv_bn_act
+    with pytest.MonkeyPatch.context() as m, torch.inference_mode():
+        m.setattr(L, "conv_bn_act", lambda *a, **k: calls.append(1) or real(*a, **k))
+        inference.classify_bucket(model, feats, 16, settings, use_shared_stem=shared)
+    assert len(calls) == owed["convs_per_bucket"](model, settings, shared) > 0
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["LaughterPipeline", "ShardedPipeline"])
+def test_chip_smoke_counts_every_classify_step_of_a_pipeline(sharded):
+    """chip_smoke.py's count sees each classify step a pipeline runs: on
+    the CPU, where the composed chain launches nothing, a counted run
+    fails naming what its steps owe (three channels, two buckets each:
+    six steps of 40 convs), and the pipelines' classify step is restored."""
+    import runpy
+
+    from laughter_detection_icsi_tpu_torch import inference
+    from laughter_detection_icsi_tpu_torch.models import zoo
+    from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline, sharded_inference
+    from tests.test_torch_import import REPO
+
+    smoke = runpy.run_path(str(REPO / "chip_smoke.py"), run_name="chip_smoke_probe")
+    model = zoo.build("ResNetBigger", linear_layer_size=48)
+    settings = inference.InferenceSettings(chunk=16, bucket_frames=16)
+    waves = [_x((3000,), torch.float32, seed=c).numpy() * 0.1 for c in range(3 if sharded else 1)]
+    pipe = (ShardedPipeline(model, settings=settings, device="cpu") if sharded
+            else inference.LaughterPipeline(model, settings=settings, device="cpu"))
+    real = inference.classify_bucket
+    with pytest.raises(smoke["PhaseError"], match=f"where its classify steps owe "
+                                                  f"{len(waves) * 2 * 40}$"):
+        with smoke["EPILOGUES"].count("cpu"):
+            if sharded:
+                pipe.probs_for_waveforms(waves)
+            else:
+                pipe.probs_for_waveform(waves[0])
+    assert inference.classify_bucket is real and sharded_inference.classify_bucket is real

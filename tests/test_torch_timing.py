@@ -117,6 +117,9 @@ KERNELS = [
     ("Memcpy HtoD (Pageable -> Device)", "copies"),
     ("Memset (Device)", "copies"),
     ("fbank_kernel", "fbank"),
+    # The conv epilogue (csrc/bn_act.cu): elementwise work, counted there.
+    ("void bn_act_kernel<__nv_bfloat16, 8>(BnActArgs<__nv_bfloat16>)", "elementwise"),
+    ("void bn_act_kernel<float, 4>(BnActArgs<float>)", "elementwise"),
 ]
 
 
