@@ -20,7 +20,10 @@ Phases (any failure exits non-zero and prints no result):
    frame more among them), a [3, n] batch and a [4, bucket] multichannel
    bucket batch equal to each channel alone, and fused_conv's whole-track
    shape (18,432 frames for 150 s) and the feature cache's 30,000-frame
-   bucket (phase 10's path); on a tone, where the mel bins span
+   bucket (phase 10's path), and at the AST preset's features (128 bins,
+   Hann, 20 Hz to Nyquist, the eps floor) a track, a silent stretch, the
+   clips cell's [6, 1,108,080] bucket batch (each row equal alone) and one
+   such row (timed); on a tone, where the mel bins span
    ~17 nats and no fp32 path meets that tolerance, the kernel within 1.5x
    JAX ``fbank_jit``'s own error of float64 truth (computed on the card);
    the kernel's, the plain version's and one cuBLAS matmul's times at the
@@ -221,10 +224,16 @@ Phases (any failure exits non-zero and prints no result):
    audio: each piece the int16 of its interval, the gaps silent; (d)
    ``cli/probe_audio_loading`` on a shorten channel of phase 8's corpus
    names the native decoder;
-17. the card, one JSON line of the kernels (the fbank kernel at the main
-   path's bucket; ``launches`` counted on phase 8's sweep, the launches of
-   every path, the bf16 paths', the e2e artifact's, each rank's of phase 14,
-   the bench's profiled call and phase 16's paths included, beside them)
+17. AST clips sweep — ``cli/sweep.main --config ast_audioset --random_init
+   --device cuda:0 --analyse`` (the AudioSet AST at its published widths,
+   seeded weights, bf16) over a meeting of 2 x 130 s: rc 0, 87 TextGrids a
+   channel, the fbank kernel launched once a bucket batch of 6,000 frames
+   (3) and once for the warm-up, 60 clips a channel each launch;
+18. the card, one JSON line of the kernels (the fbank kernel at the main
+   path's bucket and its time on the clips bucket row; ``launches`` counted
+   on phase 8's sweep, the launches of every path, the bf16 paths', the e2e
+   artifact's, each rank's of phase 14, the bench's profiled call, phase
+   16's paths and phase 17's AST sweep included, beside them)
    and of the conv epilogue (``launches`` counted on phase 11's bf16 sweep,
    beside the launches of each path counted: phases 4-8, 11 and 13, the
    train steps of phases 9 and 12, and phase 16's parity run), then the
@@ -524,7 +533,7 @@ def phase_kernel(card, peak, block_frames: int):
     import torch
 
     from laughter_detection_icsi_tpu_torch import host_prep
-    from laughter_detection_icsi_tpu_torch.config import FEAT
+    from laughter_detection_icsi_tpu_torch.config import AST_FEAT, FEAT
     from laughter_detection_icsi_tpu_torch.inference import (
         InferenceSettings, strict_fp32, track_wave_len)
     from laughter_detection_icsi_tpu_torch.ops import fbank as fbank_ops
@@ -541,6 +550,10 @@ def phase_kernel(card, peak, block_frames: int):
     track_n = track_wave_len(track_frames)
     check((track_frames, track_n) == (18_432, 2_949_360), f"whole track {track_frames}, {track_n}")
     train_n = 29_999 * snip.frame_shift_samples + snip.frame_length_samples
+    # The AST preset's bucket batch (the clips cell's): 6,000 frames and 924
+    # frames of clip context, 128 bins.
+    ast_n = host_prep.bucket_wave_len(InferenceSettings(mode="clips", bucket_frames=6000), AST_FEAT)
+    check(ast_n == 1_108_080, f"AST bucket length {ast_n}")
     silent = noise(32000)
     silent[6000:22000] = 0.0  # whole frames of silence: power at the floor
     tile = block_frames * 3 * FEAT.frame_shift_samples  # 3 whole blocks of frames
@@ -563,10 +576,17 @@ def phase_kernel(card, peak, block_frames: int):
         # The feature cache's bucket (data/feature_cache.py): 30,000 frames.
         (f"feature cache bucket, 30000 frames n={train_n}",
          speechlike(train_n, seed=5) / np.float32(32768), snip),
+        # AST's features: 128 bins, Hann, 20 Hz to Nyquist, the eps floor.
+        ("128 bins, n=48777", noise(48777), AST_FEAT),
+        ("silent stretch, 128 bins, n=32000", silent, AST_FEAT),
+        (f"clips bucket batch [6, {ast_n}], 128 bins", noise((6, ast_n)), AST_FEAT),
+        (f"clips bucket row n={ast_n}, 128 bins",
+         speechlike(ast_n, seed=6) / np.float32(32768), AST_FEAT),
     ]
     timed = {"main-path bucket n=999120": "the bucket",
              f"fused_conv whole track, {track_frames} frames n={track_n}": "the whole track",
-             f"feature cache bucket, 30000 frames n={train_n}": "the feature cache's bucket"}
+             f"feature cache bucket, 30000 frames n={train_n}": "the feature cache's bucket",
+             f"clips bucket row n={ast_n}, 128 bins": "the clips bucket row"}
     max_err = 0.0
     times = {}
     with strict_fp32():
@@ -602,6 +622,7 @@ def phase_kernel(card, peak, block_frames: int):
         source="laughter_detection_icsi_tpu_torch/csrc/fbank.cu",
         replaces="laughter_detection_icsi_tpu/ops/fbank_pallas.py:86",
         max_abs_err=max_err, **times["the bucket"],
+        clips_row_ms=times["the clips bucket row"]["ms"],
     )
 
 
@@ -3633,6 +3654,65 @@ def train_breakdown(what: str, step, trace_path: Path, steps: int = 5):
     return busy_us / 1e3 / wall_ms
 
 
+#: Phase 17's meeting: 130 s on two channels, three bucket batches of the
+#: AST preset's 6,000 frames, the last partial.
+CLIPS_CORPUS = (("Bmr013", 2, 130, "pcm"),)
+
+
+def phase_clips(card, work: Path) -> int:
+    """The AST preset on the main path: ``cli/sweep.main --config
+    ast_audioset --random_init`` over ``CLIPS_CORPUS`` on card 0 in the
+    card's default bf16 (see the module docstring, phase 17).  Returns the
+    fbank launches of the run."""
+    import contextlib
+    import io
+
+    import torch
+
+    from laughter_detection_icsi_tpu_torch import host_prep, inference
+    from laughter_detection_icsi_tpu_torch.cli import sweep
+    from laughter_detection_icsi_tpu_torch.config import MODEL_MAP, parse_float_list
+    from laughter_detection_icsi_tpu_torch.data import audio
+    from laughter_detection_icsi_tpu_torch.ops import fbank_cuda
+
+    tdir, adir, paths = write_sweep_corpus(work / "clips_corpus", work / "clips_cache",
+                                           CLIPS_CORPUS)
+    ((meeting, chans),) = paths.items()
+    preset = MODEL_MAP["ast_audioset"]
+    settings = inference.settings_from_flags(device="cuda", mode=preset.mode)
+    t = max(host_prep.num_frames(audio.info(p).num_samples, preset.feat) for p in chans)
+    batches = -(-t // settings.bucket_frames)
+    grid = (len(parse_float_list(sweep.DEFAULT_THRESHOLDS))
+            * len(parse_float_list(sweep.DEFAULT_MIN_LENGTHS)))
+    out = work / "sweep_clips"
+    text = io.StringIO()
+    clips_before = inference.clips_classified
+    fbank_cuda.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = sweep.main(["--audio_dir", str(adir), "--transcript_dir", str(tdir),
+                         "--output_dir", str(out), "--split", "all", "--analyse",
+                         "--config", "ast_audioset", "--random_init", "--device", "cuda:0"])
+    torch.cuda.synchronize()
+    launches = fbank_cuda.launches
+    took = time.perf_counter() - t0
+    clips = inference.clips_classified - clips_before
+    check(rc == 0, f"AST sweep returned {rc}: {text.getvalue()[-800:]}")
+    # One launch a bucket batch, and the warm-up's bucket batch of zeros.
+    check(launches == batches + 1,
+          f"AST sweep: {launches} fbank launches for {batches} bucket batches + the warm-up")
+    per_launch = len(chans) * settings.bucket_frames // settings.hop_frames
+    check(clips == launches * per_launch,
+          f"AST sweep: {clips} clips classified, {launches} x {per_launch} owed")
+    grids = sorted((out / "all" / meeting).rglob("*.TextGrid"))
+    check(len(grids) == len(chans) * grid, f"AST sweep: {len(grids)} TextGrids")
+    print(f"AST sweep of {meeting} ({len(chans)} x {CLIPS_CORPUS[0][2]} s, {t} frames, bf16, "
+          f"seeded weights): rc 0 in {took:.1f} s; {launches} fbank launches ({batches} bucket "
+          f"batches of {settings.bucket_frames} frames + the warm-up), {clips} clips, "
+          f"{len(grids)} TextGrids")
+    return launches
+
+
 def main(through: int = 17) -> int:
     try:
         import torch
@@ -3691,6 +3771,8 @@ def main(through: int = 17) -> int:
         benched = phase_bench(card)
         header("16. parity, demos and tools")
         tools = phase_parity(card, work, ctx)
+        header("17. AST clips sweep")
+        clips = phase_clips(card, work)
     except Exception as e:  # any failed phase fails the run
         import traceback
 
@@ -3707,7 +3789,8 @@ def main(through: int = 17) -> int:
                **bf16, "e2e_artifact": artifact,
                **{f"multiprocess_sweep_rank{r}": n for r, n in enumerate(multi["sweep"])},
                **{f"multiprocess_train_features_rank{r}": n for r, n in enumerate(multi["train"])},
-               "bench_profiled_windows_call": benched["launches"], **tools}
+               "bench_profiled_windows_call": benched["launches"], **tools,
+               "sweep_clips_bf16": clips}
     print(f"fbank launches per path: windows {ctx['launches']} ({ctx['n_buckets']} buckets), "
           f"fused_conv {fused} (one file), serve replay {streamed} ({ctx['n_buckets']} buckets "
           f"+ warm-up), multichannel {batched} (bucket batches of 4 channels) and "
@@ -3723,7 +3806,8 @@ def main(through: int = 17) -> int:
           f"{benched['launches']} (its stderr's breakdown); the parity CLI's features check "
           f"{tools['parity_features']} (one a file) and its whole run {tools['parity_run']}; "
           f"the demo {tools['demo_features']} featurizing and {tools['demo_inference']} "
-          f"classifying, the streaming demo {tools['streaming_demo']}")
+          f"classifying, the streaming demo {tools['streaming_demo']}; the AST sweep {clips} "
+          f"(bucket batches + the warm-up)")
     entry["max_abs_err"] = max(entry["max_abs_err"], swept["max_err"], featurized["max_err"])
     entry = {"name": entry.pop("name"), "route": entry.pop("route"),
              "source": entry.pop("source"), "replaces": entry.pop("replaces"),

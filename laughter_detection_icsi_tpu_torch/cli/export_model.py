@@ -84,6 +84,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(
             f"--config: unknown preset {args.config!r} (choose from {sorted(MODEL_MAP)})"
         )
+    if MODEL_MAP[args.config].mode != "windows":
+        raise SystemExit(
+            f"--config {args.config}: {MODEL_MAP[args.config].model} is not exported: its "
+            "artifacts would be the window classifier ([B, 1, 100, 44] windows) or the "
+            f"windows-mode bucket body, and it runs only in mode {MODEL_MAP[args.config].mode!r}"
+        )
 
     from laughter_detection_icsi_tpu_torch import export as export_lib
     from laughter_detection_icsi_tpu_torch import inference

@@ -545,6 +545,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"--config: unknown preset {args.config!r} "
             f"(choose from {sorted(MODEL_MAP)})"
         )
+    if MODEL_MAP[args.config].mode != "windows":
+        raise SystemExit(
+            f"--config {args.config}: the parity drill holds the port to the JAX package's "
+            "goldens, and this preset has no JAX twin"
+        )
     resolve_device(args.device)  # no card for --device cuda raises here
     gdir = Path(args.goldens)
     audio = _audio_files(args.audio_dir)

@@ -9,7 +9,10 @@ The same flags as the JAX package's ``cli/segment_laughter.py``, plus
         --output_dir out --save_to_textgrid True --device cuda
 
 ``--mode fused_conv`` runs the conv stack once over the whole track
-(models/fully_conv.py).  ``--transfer_codec packed|auto`` ships int16
+(models/fully_conv.py).  ``--config ast_audioset`` runs the AudioSet
+Audio Spectrogram Transformer in the clips mode (its features, 10.24 s
+clips a second apart); with ``--random_init`` its weights come from the
+seed.  ``--transfer_codec packed|auto`` ships int16
 buckets as a bit-packed wire decoded on the device (ops/pcm_pack.py;
 windows mode).  ``--precision`` defaults to bfloat16 on the card and
 float32 on the CPU, as the JAX CLI's on an accelerator and on the CPU.
@@ -35,9 +38,13 @@ def strtobool(v: str) -> bool:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from laughter_detection_icsi_tpu_torch.config import MODEL_MAP
+
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--model_path", type=str, default="checkpoints/in_use/resnet_base")
-    p.add_argument("--config", type=str, default="resnet_base")
+    p.add_argument("--config", type=str, default="resnet_base",
+                   help=f"model preset: {', '.join(MODEL_MAP)} (ast_audioset: "
+                        "the AudioSet Audio Spectrogram Transformer, clips mode)")
     p.add_argument("--thresholds", type=str, default="0.5",
                    help="single value or comma-separated list")
     p.add_argument("--min_lengths", type=str, default="0.2",
@@ -59,11 +66,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bucket_frames", type=int, default=None,
                    help="frames per fixed-size bucket (default: 6144 on "
                         "the card, 1024 on the CPU)")
-    p.add_argument("--mode", type=str, default="windows",
-                   choices=["windows", "fused_conv"],
-                   help="'windows' = reference-exact per-window conv; "
-                        "'fused_conv' = the conv stack once over the whole "
-                        "track (faster, not checkpoint parity)")
+    p.add_argument("--mode", type=str, default=None,
+                   choices=["windows", "fused_conv", "clips"],
+                   help="default: the preset's ('clips' for ast_audioset, "
+                        "else 'windows'); 'windows' = reference-exact "
+                        "per-window conv; 'fused_conv' = the conv stack once "
+                        "over the whole track (faster, not checkpoint "
+                        "parity); 'clips' = AST over 10.24 s clips")
     p.add_argument("--transfer_codec", type=str, default="raw",
                    choices=["raw", "auto", "packed"],
                    help="host->device PCM transfer: 'packed'/'auto' = "
@@ -131,7 +140,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         bucket_frames=args.bucket_frames,
         precision=args.precision,
         device=args.device,
-        mode=args.mode,
+        mode=args.mode or preset.mode,
         transfer_codec=args.transfer_codec,
     )
     model = zoo.build(
@@ -145,7 +154,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         if best is None:
             raise SystemExit(f"Model checkpoint not found at {args.model_path}")
         model.load_state_dict(ckpt_lib.load_checkpoint(best)["state_dict"], strict=True)
-    pipe = inference.LaughterPipeline(model, settings=settings, device=args.device)
+    try:
+        pipe = inference.LaughterPipeline(model, feat_cfg=preset.feat, settings=settings,
+                                          device=args.device)
+    except ValueError as e:  # a preset in a mode that cannot run it
+        raise SystemExit(f"--config {args.config}: {e}")
 
     if args.interactive:
         print("Starting interactive laughter-prediction shell (Ctrl-D to exit)")

@@ -122,6 +122,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise SystemExit(
             f"--config: unknown preset {args.config!r} (choose from {sorted(MODEL_MAP)})"
         )
+    if MODEL_MAP[args.config].mode != "windows":
+        raise SystemExit(
+            f"--config {args.config}: serve streams through the sessions, which run the "
+            f"windows mode; this preset runs in mode {MODEL_MAP[args.config].mode!r} "
+            "(use cli/segment_laughter or cli/sweep)"
+        )
     try:
         devices = mesh.local_devices(args.device)
     except ValueError as e:

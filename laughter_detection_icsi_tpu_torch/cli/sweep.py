@@ -13,6 +13,9 @@ scores the split (``eval/analyse.py``: no pandas, no lxml).  Run it as
         --output_dir out --split dev --model_path checkpoints/resnet_base \\
         --analyse [--transfer_codec packed] [--mode fused_conv]
 
+``--config ast_audioset`` sweeps with the AudioSet Audio Spectrogram
+Transformer in the clips mode (``--random_init`` for seeded weights).
+
 ``--device cuda`` (the default) splits every meeting's channels over
 every visible card in a lone process, as the JAX CLI's ``make_mesh()``
 does; ``--device cuda:0`` pins one card, and a comma list names the shards
@@ -63,6 +66,8 @@ def selection_fingerprint(resolved) -> str:
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from laughter_detection_icsi_tpu_torch.config import MODEL_MAP
+
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--audio_dir", type=str, required=True,
                    help="root with <meeting>/<chan>.sph")
@@ -70,8 +75,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--split", type=str, default="dev",
                    choices=["train", "dev", "test", "all"])
-    p.add_argument("--model_path", type=str, required=True)
-    p.add_argument("--config", type=str, default="resnet_base")
+    p.add_argument("--model_path", type=str, default=None,
+                   help="the checkpoint (required unless --random_init)")
+    p.add_argument("--random_init", action="store_true",
+                   help="seeded initial weights instead of a checkpoint (the "
+                        "AST preset's published weights are not in the checkout)")
+    p.add_argument("--config", type=str, default="resnet_base",
+                   help=f"model preset: {', '.join(MODEL_MAP)} (ast_audioset: "
+                        "the AudioSet Audio Spectrogram Transformer, clips mode)")
     p.add_argument("--thresholds", type=str, default=DEFAULT_THRESHOLDS)
     p.add_argument("--min_lengths", type=str, default=DEFAULT_MIN_LENGTHS)
     p.add_argument("--meetings", type=str, default=None,
@@ -85,11 +96,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bucket_frames", type=int, default=None,
                    help="frames per fixed-size bucket (default: 6144 on "
                         "the card, 1024 on the CPU)")
-    p.add_argument("--mode", type=str, default="windows",
-                   choices=["windows", "fused_conv"],
-                   help="'windows' = reference-exact per-window conv; "
-                        "'fused_conv' = the conv stack once over the whole "
-                        "track (faster, not checkpoint parity)")
+    p.add_argument("--mode", type=str, default=None,
+                   choices=["windows", "fused_conv", "clips"],
+                   help="default: the preset's ('clips' for ast_audioset, "
+                        "else 'windows'); 'windows' = reference-exact "
+                        "per-window conv; 'fused_conv' = the conv stack once "
+                        "over the whole track (faster, not checkpoint "
+                        "parity); 'clips' = AST over 10.24 s clips")
     p.add_argument("--transfer_codec", type=str, default="raw",
                    choices=["raw", "auto", "packed"],
                    help="host->device PCM transfer: 'packed'/'auto' = "
@@ -144,6 +157,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"(choose from {sorted(MODEL_MAP)})"
         )
     preset = MODEL_MAP[args.config]
+    if args.model_path is None and not args.random_init:
+        raise SystemExit("--model_path is required (or --random_init)")
     thresholds = parse_float_list(args.thresholds, "--thresholds")
     min_lengths = parse_float_list(args.min_lengths, "--min_lengths")
 
@@ -184,7 +199,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         bucket_frames=args.bucket_frames,
         precision=args.precision,
         device=devices[0],
-        mode=args.mode,
+        mode=args.mode or preset.mode,
         transfer_codec=args.transfer_codec,
     )
     model = zoo.build(
@@ -193,11 +208,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         linear_layer_size=preset.linear_layer_size,
         filter_sizes=preset.filter_sizes,
     )
-    ckpt = ckpt_lib.resolve_checkpoint(args.model_path)
-    if ckpt is None:
-        raise SystemExit(f"Model checkpoint not found at {args.model_path}")
-    model.load_state_dict(ckpt_lib.load_checkpoint(ckpt)["state_dict"], strict=True)
-    pipe = ShardedPipeline(model, settings=settings, devices=devices)
+    if not args.random_init:
+        ckpt = ckpt_lib.resolve_checkpoint(args.model_path)
+        if ckpt is None:
+            raise SystemExit(f"Model checkpoint not found at {args.model_path}")
+        model.load_state_dict(ckpt_lib.load_checkpoint(ckpt)["state_dict"], strict=True)
+    try:
+        pipe = ShardedPipeline(model, feat_cfg=preset.feat, settings=settings, devices=devices)
+    except ValueError as e:  # a preset in a mode that cannot run it
+        raise SystemExit(f"--config {args.config}: {e}")
     on_card = pipe.device.type == "cuda"
 
     # Resolve every meeting's channel audio up front: the warm-up below must

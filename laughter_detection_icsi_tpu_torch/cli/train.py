@@ -182,6 +182,11 @@ def _train(argv: Optional[List[str]]) -> int:
 
     if args.config not in MODEL_MAP:
         parser.error(f"--config: unknown preset {args.config!r} (choose from {sorted(MODEL_MAP)})")
+    preset = MODEL_MAP[args.config]
+    if preset.mode != "windows":
+        parser.error(f"--config {args.config}: the port does not train {preset.model} "
+                     f"(architecture {preset.model!r}); it trains the window classifiers on "
+                     "100 x 44 windows")
     if args.batch_size is not None:
         # type=str for the reference's flags: parsed and checked here.
         try:
@@ -217,7 +222,6 @@ def _train(argv: Optional[List[str]]) -> int:
     from laughter_detection_icsi_tpu_torch.train import Adam, TrainLoop, Trainer
     from laughter_detection_icsi_tpu_torch.utils.profiling import trace
 
-    preset = MODEL_MAP[args.config]
     batch_size = int(args.batch_size) if args.batch_size is not None else preset.batch_size
     dropout = float(args.dropout_rate)
     grad_accum = int(args.gradient_accumulation_steps)

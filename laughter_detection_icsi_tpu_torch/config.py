@@ -18,43 +18,6 @@ from typing import Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
-class ModelPreset:
-    """One entry of the reference's MODEL_MAP (reference config.py:9-26)."""
-
-    name: str
-    model: str  # model-zoo architecture name, resolved by models.build()
-    batch_size: int
-    linear_layer_size: int
-    # Tuple, not List: frozen=True blocks rebinding but not in-place
-    # mutation of the shared module-global presets.
-    filter_sizes: Tuple[int, ...]
-    log_frequency: int
-    val_data_text_path: str = "./data/switchboard/val/switchboard_val_data.txt"
-
-
-MODEL_MAP: Dict[str, ModelPreset] = {
-    "resnet_base": ModelPreset(
-        name="resnet_base",
-        model="ResNetBigger",
-        batch_size=32,
-        # For (100, 44) log-mel windows: three stride-2 stages + AvgPool(4)
-        # leave a (3, 1) map with 16 channels = 48 features.
-        linear_layer_size=48,
-        filter_sizes=(64, 32, 16, 16),
-        log_frequency=900,
-    ),
-    "resnet_with_augmentation": ModelPreset(
-        name="resnet_with_augmentation",
-        model="ResNetBigger",
-        batch_size=32,
-        linear_layer_size=128,
-        filter_sizes=(128, 64, 32, 32),
-        log_frequency=200,
-    ),
-}
-
-
-@dataclasses.dataclass(frozen=True)
 class FeatConfig:
     """Log-mel (Fbank) featurizer configuration: 100 frames/s and 44 mel
     bins (reference config.py:28-31), plus the Kaldi fbank semantics the
@@ -98,6 +61,73 @@ class FeatConfig:
 
 
 FEAT = FeatConfig()
+
+
+#: The Audio Spectrogram Transformer's features (its ``src/dataloader.py``
+#: ``torchaudio.compliance.kaldi.fbank`` call at AudioSet's settings): 128
+#: mel bins from 20 Hz to Nyquist, a Hann window, frames that fit inside
+#: the audio (``snip_edges``), the log floored at float32's eps, no energy.
+AST_FEAT = FeatConfig(num_filters=128, window_type="hanning", snip_edges=True,
+                      energy_floor=1.1920928955078125e-07, low_freq=20.0, high_freq=0.0)
+
+#: AST's AudioSet normalisation of the log-mel: ``(x - mean) / (2 * std)``.
+AST_NORM_MEAN = -4.2677393
+AST_NORM_STD = 4.5689974
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelPreset:
+    """One entry of the reference's MODEL_MAP (reference config.py:9-26)."""
+
+    name: str
+    model: str  # model-zoo architecture name, resolved by models.build()
+    batch_size: int
+    linear_layer_size: int
+    # Tuple, not List: frozen=True blocks rebinding but not in-place
+    # mutation of the shared module-global presets.
+    filter_sizes: Tuple[int, ...]
+    log_frequency: int
+    val_data_text_path: str = "./data/switchboard/val/switchboard_val_data.txt"
+    # The port's own: the features the preset classifies and the
+    # inference mode that runs it (``InferenceSettings.mode``).
+    feat: FeatConfig = FEAT
+    mode: str = "windows"
+
+
+MODEL_MAP: Dict[str, ModelPreset] = {
+    "resnet_base": ModelPreset(
+        name="resnet_base",
+        model="ResNetBigger",
+        batch_size=32,
+        # For (100, 44) log-mel windows: three stride-2 stages + AvgPool(4)
+        # leave a (3, 1) map with 16 channels = 48 features.
+        linear_layer_size=48,
+        filter_sizes=(64, 32, 16, 16),
+        log_frequency=900,
+    ),
+    "resnet_with_augmentation": ModelPreset(
+        name="resnet_with_augmentation",
+        model="ResNetBigger",
+        batch_size=32,
+        linear_layer_size=128,
+        filter_sizes=(128, 64, 32, 32),
+        log_frequency=200,
+    ),
+    # The port's own, with no JAX twin: the published AudioSet AST
+    # (models/ast.py) over 10.24 s clips, laughter its class 16.
+    "ast_audioset": ModelPreset(
+        name="ast_audioset",
+        model="AST",
+        batch_size=12,
+        linear_layer_size=768,
+        filter_sizes=(),
+        log_frequency=900,
+        feat=AST_FEAT,
+        mode="clips",
+    ),
+}
+
+
 
 
 # The checkout's root: the corpus layout defaults below sit under it.

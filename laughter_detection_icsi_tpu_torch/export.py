@@ -45,8 +45,10 @@ import torch
 from torch import nn
 
 from laughter_detection_icsi_tpu_torch.host_prep import bucket_inputs  # noqa: F401
+from laughter_detection_icsi_tpu_torch.config import FEAT
 from laughter_detection_icsi_tpu_torch.inference import (
-    cast_model_bf16, compute_dtype, precision_scope, resolve_device, scale_pcm)
+    InferenceSettings, cast_model_bf16, check_model_mode, compute_dtype, precision_scope,
+    resolve_device, scale_pcm)
 # Registers torch.ops.laughter_icsi_torch.fbank, which an e2e artifact calls:
 # it must exist before torch.export.load reads one.
 from laughter_detection_icsi_tpu_torch.ops import fbank_cuda  # noqa: F401
@@ -97,6 +99,7 @@ def export_window_classifier(
     caller's model is not changed."""
     if precision not in ("float32", "bfloat16"):
         raise ValueError(f"unknown precision {precision!r}")
+    check_model_mode(model, FEAT, InferenceSettings())  # a window classifier only
     dev = resolve_device(device)
     m = cast_model_bf16(model) if precision == "bfloat16" else copy.deepcopy(model)
     module = _WindowClassifier(m.to(dev).eval(), precision)

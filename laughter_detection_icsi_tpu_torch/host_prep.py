@@ -1,6 +1,9 @@
 """Host-side framing geometry: Kaldi frame counts, snip_edges=False
 reflection padding, the bucket buffer length, and the host prep of an
-exported e2e artifact's inputs (``bucket_inputs``).
+exported e2e artifact's inputs (``bucket_inputs``).  The clips mode (the
+AST preset) frames with ``snip_edges`` and reads each bucket with
+``clip_frames - hop_frames`` frames of context around its blocks
+(``bucket_start``, ``clip_bounds``): the port's own, without a JAX twin.
 
 A copy of the JAX package's ``host_prep.py`` (numpy + config only), so the
 port's bucket plan is the same arithmetic as the reference pipeline's.  A
@@ -106,32 +109,93 @@ class BucketGeometry:
                 raise ValueError(f"{name} must be >= 1, got {v}")
 
 
+def is_clips(settings) -> bool:
+    return getattr(settings, "mode", "windows") == "clips"
+
+
+def halo_frames(settings) -> int:
+    """Frames a bucket reads past its own: ``window - 1``, or in the clips
+    mode a clip's context on both sides, ``clip_frames - hop_frames``."""
+    if is_clips(settings):
+        return settings.clip_frames - settings.hop_frames
+    return settings.window - 1
+
+
+def clip_context(settings) -> int:
+    """Frames a clip holds on each side of its block of ``hop_frames``."""
+    return (settings.clip_frames - settings.hop_frames) // 2
+
+
 def bucket_wave_len(settings, feat_cfg: FeatConfig = FEAT) -> int:
-    """Samples one bucket reads: ``bucket + window - 1`` frames (the bucket
-    plus its window-1 halo) under snip_edges geometry.  ``settings`` is
-    anything with ``bucket_frames``/``window`` attributes."""
+    """Samples one bucket reads: ``bucket + halo`` frames (the bucket plus
+    its ``window - 1`` halo, or its clips' context) under snip_edges
+    geometry.  ``settings`` is anything with ``bucket_frames``/``window``
+    attributes (and the clip sizes in the clips mode)."""
     cfg = snip_cfg(feat_cfg)
-    ext = settings.bucket_frames + settings.window - 1
+    ext = settings.bucket_frames + halo_frames(settings)
     return (ext - 1) * cfg.frame_shift_samples + cfg.frame_length_samples
+
+
+def host_pad(wave: np.ndarray, cfg: FeatConfig, settings) -> Tuple[np.ndarray, int]:
+    """The mode's host prep: (the track as its buckets read it, its frame
+    count).  :func:`host_pad_waveform` pads it, except in the clips mode,
+    whose frames fit inside the audio (``cfg`` must say ``snip_edges``):
+    the track is read as it is, from :func:`bucket_start`."""
+    if not is_clips(settings):
+        return host_pad_waveform(wave, cfg)
+    if not cfg.snip_edges:
+        raise ValueError("the clips mode frames with snip_edges=True; got a snip_edges=False "
+                         "FeatConfig")
+    return wave, num_frames(len(wave), cfg)
+
+
+def bucket_start(k: int, settings, feat_cfg: FeatConfig = FEAT) -> int:
+    """The sample of the host-prepared track (:func:`host_pad`) at which
+    bucket ``k``'s buffer starts: ``k * bucket * shift``, less a clip's
+    context in the clips mode, so the first bucket's buffer starts before
+    the track (its frame ``j`` is the track's frame ``k * bucket + j -
+    context``); :func:`copy_bucket` fills what lies outside with zeros."""
+    start = k * settings.bucket_frames
+    if is_clips(settings):
+        start -= clip_context(settings)
+    return start * snip_cfg(feat_cfg).frame_shift_samples
+
+
+def copy_bucket(buf: np.ndarray, track: np.ndarray, start: int) -> None:
+    """``buf[:] = track[start : start + len(buf)]``, where ``start`` may be
+    negative; the rest of ``buf`` (a zeroed buffer) is left as it is."""
+    at = max(-start, 0)
+    src = track[start + at : max(start + len(buf), 0)]
+    buf[at : at + len(src)] = src
+
+
+def clip_bounds(t: int, k: int, settings) -> Tuple[int, int]:
+    """[lo, hi): the frames of bucket ``k``'s buffer (``bucket +
+    halo`` of them) that lie in a track of ``t`` frames, in the clips
+    mode's geometry; lo == hi for none."""
+    ext = settings.bucket_frames + halo_frames(settings)
+    at = clip_context(settings) - k * settings.bucket_frames
+    return int(np.clip(at, 0, ext)), int(np.clip(at + t, 0, ext))
 
 
 def bucket_slices(padded: np.ndarray, t: int, settings, feat_cfg: FeatConfig = FEAT):
     """Yield ``(buf, valid, keep)`` per bucket of a recording padded by
     :func:`host_pad_waveform` to ``t`` frames: ``k * bucket * shift``
     slicing, zero-filled to :func:`bucket_wave_len` in ``padded``'s dtype;
-    ``valid`` is the bucket's valid-frame count (its frames and their halo),
-    ``keep`` how many leading output rows are its frames.  The one bucket
-    plan of the offline pipeline (``LaughterPipeline.bucket_buffers``) and
-    of the e2e artifact's host prep (:func:`bucket_inputs`)."""
+    ``valid`` is the bucket's valid-frame count (its frames and their halo;
+    in the clips mode, on the track :func:`host_pad` prepares, the
+    :func:`clip_bounds` pair), ``keep`` how many leading output rows are its
+    frames.  The one bucket plan of the offline pipeline
+    (``LaughterPipeline.bucket_buffers``) and of the e2e artifact's host
+    prep (:func:`bucket_inputs`)."""
     wave_len = bucket_wave_len(settings, feat_cfg)
     bucket = settings.bucket_frames
-    shift = snip_cfg(feat_cfg).frame_shift_samples
     for k in range(-(-t // bucket)):
-        lo = k * bucket * shift
         buf = np.zeros(wave_len, dtype=padded.dtype)
-        src = padded[lo : lo + wave_len]
-        buf[: len(src)] = src
-        yield buf, min(t - k * bucket, bucket + settings.window - 1), min(bucket, t - k * bucket)
+        copy_bucket(buf, padded, bucket_start(k, settings, feat_cfg))
+        valid = (clip_bounds(t, k, settings) if is_clips(settings)
+                 else min(t - k * bucket, bucket + settings.window - 1))
+        yield buf, valid, min(bucket, t - k * bucket)
 
 
 def bucket_inputs(

@@ -21,6 +21,12 @@ fixed-size bucket of frames:
 
 ``mode='fused_conv'`` featurizes the whole track in one launch and runs
 the dilated conv stack once over it (models/fully_conv.py).
+``mode='clips'`` runs an AudioSet tagger, the Audio Spectrogram
+Transformer (``models/ast.py``, the ``ast_audioset`` preset), through the
+same bucket loop: each bucket's 128-bin features are cut into
+``clip_frames`` clips at a hop of ``hop_frames``, each centred on its block
+of output frames, and every frame of a block gets the laughter class's
+probability of its clip (``classify_clips``).
 ``StreamingSession`` feeds live PCM through the same bucket body, so its
 probabilities equal the offline ones bit for bit.
 
@@ -49,9 +55,10 @@ import torch
 import torch.nn.functional as F
 
 from laughter_detection_icsi_tpu_torch import host_prep
-from laughter_detection_icsi_tpu_torch.config import FEAT, FeatConfig
+from laughter_detection_icsi_tpu_torch.config import AST_NORM_MEAN, AST_NORM_STD, FEAT, FeatConfig
 from laughter_detection_icsi_tpu_torch.data import audio as audio_io
 from laughter_detection_icsi_tpu_torch.models import fully_conv, shared_stem
+from laughter_detection_icsi_tpu_torch.models.ast import LAUGHTER_CLASS
 from laughter_detection_icsi_tpu_torch.ops import pcm_pack, smoothing, windows
 from laughter_detection_icsi_tpu_torch.ops.fbank_cuda import fbank_cuda
 from laughter_detection_icsi_tpu_torch.utils.profiling import annotate
@@ -75,18 +82,40 @@ class InferenceSettings:
     shared_stem: Optional[bool] = None
     # 'windows' = reference-exact per-window conv; 'fused_conv' = the conv
     # stack once over the whole track (models/fully_conv.py), not
-    # checkpoint parity.
+    # checkpoint parity; 'clips' = a clip tagger (AST) over clips of
+    # ``clip_frames`` centred on blocks of ``hop_frames`` output frames,
+    # ``clip_batch`` clips a model call (``classify_clips``).
     mode: str = "windows"
+    clip_frames: int = 1024
+    hop_frames: int = 100
+    clip_batch: int = 60  # one bucket row at the card's clips bucket of 6,000 frames
 
     def __post_init__(self):
-        for name in ("chunk", "bucket_frames", "window"):
+        for name in ("chunk", "bucket_frames", "window", "clip_frames", "hop_frames",
+                     "clip_batch"):
             v = getattr(self, name)
             if v < 1:
                 raise ValueError(f"{name} must be >= 1, got {v}")
         if self.precision not in ("float32", "bfloat16"):
             raise ValueError(f"unknown precision {self.precision!r}")
-        if self.mode not in ("windows", "fused_conv"):
+        if self.mode not in ("windows", "fused_conv", "clips"):
             raise ValueError(f"unknown mode {self.mode!r}")
+        if self.mode == "clips":
+            halo = self.clip_frames - self.hop_frames
+            if halo <= 0 or halo % 2:
+                raise ValueError(
+                    f"mode='clips' centres each clip on its block: clip_frames "
+                    f"({self.clip_frames}) must exceed hop_frames ({self.hop_frames}) "
+                    "by an even count"
+                )
+            if self.bucket_frames % self.hop_frames:
+                raise ValueError(
+                    f"mode='clips' needs whole blocks a bucket: bucket_frames "
+                    f"({self.bucket_frames}) is not a multiple of hop_frames "
+                    f"({self.hop_frames})"
+                )
+            if self.shared_stem:
+                raise ValueError("shared_stem is the ResNet family's; mode='clips' has none")
         if self.transfer_codec not in ("auto", "raw", "packed"):
             raise ValueError(f"unknown transfer_codec {self.transfer_codec!r}")
         if self.transfer_codec == "packed" and self.mode == "fused_conv":
@@ -115,12 +144,15 @@ def settings_from_flags(
     device: Union[None, str, torch.device] = None,
     **kwargs,
 ) -> InferenceSettings:
-    """The CLI defaults: chunk and bucket 6144 on the card, 1024 on the CPU;
+    """The CLI defaults: chunk and bucket 6144 on the card, 1024 on the CPU
+    (in the clips mode 6000 and 1000: whole blocks of 100 frames);
     bfloat16 on the card and float32 on the CPU, as the JAX package's on an
     accelerator and on the CPU.  ``is not None``, not ``or``: an explicit 0
     must reach InferenceSettings' validation and fail loudly."""
     on_card = torch.device("cuda" if device is None else device).type == "cuda"
     default = 6144 if on_card else 1024
+    if kwargs.get("mode") == "clips":
+        default = 6000 if on_card else 1000
     return InferenceSettings(
         chunk=chunk if chunk is not None else default,
         bucket_frames=bucket_frames if bucket_frames is not None else default,
@@ -298,6 +330,72 @@ def classify_bucket(
     return probs
 
 
+#: What the clips mode classified in this process, counted on the host from
+#: the bucket plan (no device read): the clips the model ran, and the frames
+#: of those clips that lie outside their track (zero log-mel: the front of
+#: a track, its end, a silent padding row).
+clips_classified = 0
+clip_padded_frames = 0
+
+
+def _count_clips(bounds: np.ndarray, settings: InferenceSettings) -> None:
+    global clips_classified, clip_padded_frames
+    s = settings
+    starts = np.arange(s.bucket_frames // s.hop_frames) * s.hop_frames
+    lo, hi = bounds[:, :1], bounds[:, 1:]
+    inside = np.clip(np.minimum(hi, starts + s.clip_frames) - np.maximum(lo, starts), 0, None)
+    clips_classified += inside.size
+    clip_padded_frames += int(inside.size * s.clip_frames - inside.sum())
+
+
+def classify_clips(
+    model: torch.nn.Module, feats: torch.Tensor, bounds, settings: InferenceSettings,
+    sink: Optional[list] = None,
+) -> torch.Tensor:
+    """The clips mode's classify step over a bucket batch: float32 log-mel
+    ([R, bucket + halo, F], each row a bucket buffer from
+    ``host_prep.bucket_start``) and each row's [lo, hi) frames inside
+    its track (``host_prep.clip_bounds``) -> [R, bucket] float32
+    probabilities.  Frames outside [lo, hi) are log-mel 0 (the published
+    model's zero padding), the features are normalised as AST's AudioSet
+    data are, cast to the compute dtype and cut into the bucket's clips
+    (block ``b``'s clip is frames [b * hop, b * hop + clip_frames) of the
+    buffer), which go through ``model`` ``clip_batch`` at a time.  Every
+    frame of block ``b`` gets ``sigmoid`` of its clip's laughter logit.
+    ``sink``, a list, receives each call's [R, blocks, classes] logits.
+    Spans: ``classify/clips`` (mask, normalisation, cut, patch embedding,
+    tokens and positions), ``classify/encoder`` (the blocks), and
+    ``classify/head``."""
+    s = settings
+    rows, n_blocks = feats.shape[0], s.bucket_frames // s.hop_frames
+    bounds = np.asarray(bounds, dtype=np.int64).reshape(rows, 2)
+    with annotate("classify/clips"):
+        for r, (lo, hi) in enumerate(bounds.tolist()):
+            if lo > 0:
+                feats[r, :lo] = 0.0
+            if hi < feats.shape[1]:
+                feats[r, hi:] = 0.0
+        x = ((feats - AST_NORM_MEAN) / (2 * AST_NORM_STD)).to(compute_dtype(s.precision))
+        # [R, blocks, F, clip] views of overlapping frames, copied once.
+        clips = x.unfold(1, s.clip_frames, s.hop_frames).reshape(
+            rows * n_blocks, x.shape[2], s.clip_frames)
+    _count_clips(bounds, s)
+    logits = []
+    for i in range(0, rows * n_blocks, s.clip_batch):
+        with annotate("classify/clips"):
+            tokens = model.embed(clips[i : i + s.clip_batch].transpose(1, 2))
+        with annotate("classify/encoder"):
+            tokens = model.encode(tokens)
+        with annotate("classify/head"):
+            logits.append(model.head(tokens))
+    with annotate("classify/head"):
+        logits = torch.cat(logits).reshape(rows, n_blocks, -1)
+        if sink is not None:
+            sink.append(logits)
+        probs = torch.sigmoid(logits[..., LAUGHTER_CLASS].float())
+        return probs.repeat_interleave(s.hop_frames, dim=1)
+
+
 def track_wave_len(total_frames: int, feat_cfg: FeatConfig = FEAT) -> int:
     """Samples a whole-track (fused_conv) buffer of ``total_frames`` frames
     holds under the snip_edges geometry of the host-padded wave."""
@@ -332,11 +430,32 @@ def fused_conv_probs(
         ).float()
 
 
+def check_model_mode(model: torch.nn.Module, feat_cfg: FeatConfig,
+                     settings: InferenceSettings) -> None:
+    """Refuse a model in a mode that cannot run it: AST only in the clips
+    mode, at its clip length and bin count; the window classifiers never
+    there."""
+    is_ast = getattr(model, "name", None) == "AST"
+    if is_ast != (settings.mode == "clips"):
+        raise ValueError(
+            f"model {getattr(model, 'name', type(model).__name__)!r} cannot run in "
+            f"mode={settings.mode!r}: AST runs in mode='clips' (the ast_audioset preset), "
+            "the window classifiers in 'windows' or 'fused_conv'"
+        )
+    if is_ast and (model.tdim, model.fdim) != (settings.clip_frames, feat_cfg.num_filters):
+        raise ValueError(
+            f"AST takes {model.tdim} x {model.fdim} clips; the settings cut "
+            f"{settings.clip_frames} x {feat_cfg.num_filters}"
+        )
+
+
 class LaughterPipeline:
     """Featurize + classify for one model, on one device.  In float32 the
     pipeline moves the caller's model to the device and classifies with it;
     in bfloat16 it classifies with a bf16 copy (``cast_model_bf16``) and
-    the caller's model is left as it was."""
+    the caller's model is left as it was.  In the clips mode,
+    ``logit_sink`` (None, or a list) receives each bucket batch's clip
+    logits."""
 
     def __init__(
         self,
@@ -345,6 +464,7 @@ class LaughterPipeline:
         settings: InferenceSettings = InferenceSettings(),
         device: Union[None, str, torch.device] = None,
     ):
+        check_model_mode(model, feat_cfg, settings)
         self.device = resolve_device(device)
         if settings.precision == "bfloat16":
             model = cast_model_bf16(model)
@@ -356,6 +476,7 @@ class LaughterPipeline:
         )
         self.wave_len = host_prep.bucket_wave_len(settings, feat_cfg)
         self._pack_pool: Optional[ThreadPoolExecutor] = None  # see _pack_rows
+        self.logit_sink: Optional[list] = None
 
     # ------------------------------------------------------------------ #
 
@@ -416,10 +537,15 @@ class LaughterPipeline:
     def bucket_body(self, wave: torch.Tensor, valid: Union[int, torch.Tensor]) -> torch.Tensor:
         """A bucket's float32 wave on the device -> its probabilities: the
         fbank op over the bucket and its halo ([bucket + window - 1, F]),
-        then ``classify_bucket``.  What ``export.export_bucket_pipeline``
-        traces, so the artifact runs this body."""
+        then ``classify_bucket`` (in the clips mode ``valid`` is the
+        bucket's [lo, hi) pair and ``classify_clips`` runs).  What
+        ``export.export_bucket_pipeline`` traces, so the artifact runs this
+        body."""
         with annotate("sweep/body"):
             feats = fbank_cuda(wave, host_prep.snip_cfg(self.feat_cfg))
+            if self.settings.mode == "clips":
+                return classify_clips(self.model, feats[None], [valid], self.settings,
+                                      self.logit_sink)[0]
             return classify_bucket(self.model, feats, valid, self.settings, self.shared_stem)
 
     def bucket_buffers(self, padded: np.ndarray, t: int):
@@ -441,7 +567,7 @@ class LaughterPipeline:
         check_pcm(wave)
         if wave.dtype != np.int16:
             wave = wave.astype(np.float32)
-        padded, t = host_prep.host_pad_waveform(wave, self.feat_cfg)
+        padded, t = host_prep.host_pad(wave, self.feat_cfg, self.settings)
         if t == 0:
             return torch.zeros(0, dtype=torch.float32, device=self.device)
         if self.settings.mode == "fused_conv":

@@ -16,6 +16,10 @@ statistics and updates the running ones in place, and dropout draws from
 ``generator`` (required when ``dropout_rate > 0``: without it dropout
 would silently act as 0).  ``build`` draws the initial weights from a
 seed; ``reference_init`` gives the reference's normal(0, 0.01) init.
+
+``AST`` (models/ast.py) is registered beside them: an AudioSet tagger over
+10.24 s clips, not a window classifier, with no JAX twin; it returns
+logits, and the clips mode of ``inference.py`` runs it.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from laughter_detection_icsi_tpu_torch.models import ast as ast_lib
 from laughter_detection_icsi_tpu_torch.models import layers as L
 
 
@@ -214,11 +219,29 @@ def ResNetNoBN(dropout_rate: float = 0.5, linear_layer_size: int = 192,
                         (64, 32, 16, 16), stem_channels=64, with_bn=False)
 
 
+def AST(dropout_rate: float = 0.0, linear_layer_size: Optional[int] = None,
+        filter_sizes: Optional[Sequence[int]] = None) -> ast_lib.ASTModel:
+    """The published AudioSet AST (models/ast.py) at its widths.  It has no
+    dropout at evaluation, so ``dropout_rate`` is accepted and unused; the
+    ResNet knobs must be absent or name its own sizes (``linear_layer_size``
+    its width, no ``filter_sizes``)."""
+    del dropout_rate
+    model = ast_lib.ASTModel()
+    dim = model.mlp_head[1].in_features
+    if linear_layer_size not in (None, dim) or filter_sizes not in (None, ()):
+        raise ValueError(
+            f"AST has width {dim} and no filter plan; got linear_layer_size="
+            f"{linear_layer_size}, filter_sizes={filter_sizes}"
+        )
+    return model
+
+
 MODEL_REGISTRY = {
     "ResNetBigger": ResNetBigger,
     "ResNet": ResNet,
     "ResNetNoBN": ResNetNoBN,
     "MLPModel": MLPModel,
+    "AST": AST,
 }
 
 
@@ -230,7 +253,9 @@ def build(architecture: str, dropout_rate: float = 0.5,
     each architecture's own default.  The initial weights are JAX's
     initializers (``layers.conv_init`` / ``linear_init``; BatchNorm at
     weight 1, bias 0) drawn from a generator seeded with ``seed``; a
-    checkpoint or :func:`reference_init` replaces them."""
+    checkpoint or :func:`reference_init` replaces them.  A model with an
+    ``init_weights(generator)`` of its own (AST: timm's) draws that
+    instead."""
     if architecture not in MODEL_REGISTRY:
         raise KeyError(
             f"unknown architecture {architecture!r}; "
@@ -244,6 +269,9 @@ def build(architecture: str, dropout_rate: float = 0.5,
     with torch.random.fork_rng(devices=[]):  # the modules' own init draws globally
         model = MODEL_REGISTRY[architecture](**kwargs)
     gen = torch.Generator().manual_seed(seed)
+    if hasattr(model, "init_weights"):
+        model.init_weights(gen)
+        return model.eval()
     for m in model.modules():
         if isinstance(m, nn.Conv2d):
             L.conv_init(m, gen)

@@ -30,7 +30,10 @@ shard runs a bf16 copy of the model, each row cast at the model boundary
 as a single channel's bucket is.  In a profiler's timeline each stage is a
 span (``utils/profiling.annotate``): ``sweep/decode``, ``sweep/prepare``
 (checks and host padding), ``sweep/batch`` (a bucket batch's host buffer),
-``sweep/upload``, ``sweep/body`` and ``sweep/gather``.
+``sweep/upload``, ``sweep/body`` and ``sweep/gather``.  In the clips mode
+(the AST preset) a shard's rows of a bucket batch are classified together
+(``inference.classify_clips``: the rows' clips in batches of
+``clip_batch``), and ``valid`` is each row's [lo, hi) pair.
 
 Over several processes, the calls that hand every channel to one process
 (``probs_for_waveforms``, ``probs_for_meeting``) raise, as JAX's do, and
@@ -56,6 +59,7 @@ from laughter_detection_icsi_tpu_torch.inference import (
     _StreamingBase,
     check_pcm,
     classify_bucket,
+    classify_clips,
     fused_conv_probs,
     int16_transfer_eligible,
     precision_scope,
@@ -181,7 +185,7 @@ class ShardedPipeline(LaughterPipeline):
                     # so this channel is scaled on the host (a bare astype
                     # would feed +-32768-range values to the featurizer).
                     w = w.astype(np.float32) / 32768.0
-                p, t = host_prep.host_pad_waveform(w.astype(dtype), self.feat_cfg)
+                p, t = host_prep.host_pad(w.astype(dtype, copy=False), self.feat_cfg, self.settings)
                 padded_list.append(p)
                 ts.append(t)
         return self._probs_padded_device(padded_list, ts, int16_in), ts
@@ -226,26 +230,29 @@ class ShardedPipeline(LaughterPipeline):
     def bucket_batches(self, padded_list, ts, int16_in: bool = False):
         """Yield the windows-mode bucket plan of this process's rows, one
         ``(batch [rows, wave_len], valid [rows], bucket_index)`` per bucket,
-        exactly as :meth:`_probs_padded_device` runs it."""
+        exactly as :meth:`_probs_padded_device` runs it; in the clips mode
+        ``valid`` is [rows, 2], each row's ``host_prep.clip_bounds``."""
         dtype = np.int16 if int16_in else np.float32
         ts = list(ts)
         c = len(ts)
         row_lo, row_hi = self._rows_slice(c)
         bucket = self.settings.bucket_frames
         window = self.settings.window
-        shift = host_prep.snip_cfg(self.feat_cfg).frame_shift_samples
+        clips = host_prep.is_clips(self.settings)
         for k in range(-(-max(ts) // bucket)):
             # The span closes before the yield: it never stays open while
             # the consumer runs the batch.
             with annotate("sweep/batch"):
-                lo = k * bucket * shift
+                start = host_prep.bucket_start(k, self.settings, self.feat_cfg)
                 batch = np.zeros((row_hi - row_lo, self.wave_len), dtype=dtype)
-                valid = np.zeros(row_hi - row_lo, dtype=np.int32)
+                valid = np.zeros((row_hi - row_lo, 2) if clips else row_hi - row_lo,
+                                 dtype=np.int32)
                 for r in range(row_lo, min(row_hi, c)):
                     if padded_list[r] is not None:
-                        src = padded_list[r][lo : lo + self.wave_len]
-                        batch[r - row_lo, : len(src)] = src
-                    valid[r - row_lo] = int(np.clip(ts[r] - k * bucket, 0, bucket + window - 1))
+                        host_prep.copy_bucket(batch[r - row_lo], padded_list[r], start)
+                    valid[r - row_lo] = (host_prep.clip_bounds(ts[r], k, self.settings) if clips
+                                         else int(np.clip(ts[r] - k * bucket, 0,
+                                                          bucket + window - 1)))
             yield batch, valid, k
 
     def _shard_probs(self, batch: np.ndarray, valid: np.ndarray) -> List[torch.Tensor]:
@@ -278,6 +285,10 @@ class ShardedPipeline(LaughterPipeline):
         with annotate("sweep/body"):
             for model, w, (a, b) in zip(self.shard_models, waves, self._split(len(valid))):
                 feats = fbank_cuda(w, host_prep.snip_cfg(self.feat_cfg))
+                if self.settings.mode == "clips":
+                    out.append(classify_clips(model, feats, valid[a:b], self.settings,
+                                              self.logit_sink))
+                    continue
                 out.append(torch.stack([
                     classify_bucket(model, f, int(v), self.settings, self.shared_stem)
                     for f, v in zip(feats, valid[a:b])
@@ -369,7 +380,8 @@ class ShardedPipeline(LaughterPipeline):
         padded_list: List[Optional[np.ndarray]] = [None] * len(audio_paths)
         with annotate("sweep/prepare"):
             for r, (w, _sr) in zip(mine, decoded):
-                p, t = host_prep.host_pad_waveform(np.asarray(w).astype(dtype), self.feat_cfg)
+                p, t = host_prep.host_pad(np.asarray(w).astype(dtype, copy=False), self.feat_cfg,
+                                          self.settings)
                 if t != ts[r]:
                     raise RuntimeError(
                         f"{audio_paths[r]}: decoded frame count {t} != header-derived "

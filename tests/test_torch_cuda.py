@@ -1,5 +1,7 @@
-"""The port on the card: the fbank kernel against its plain version, the
-pipeline's launch count, and the packed codec's device decoder.  Marked ``cuda``; each test skips without a
+"""The port on the card: the fbank kernel against its plain version (the
+44-bin features and AST's 128-bin ones), the pipeline's launch count, the
+packed codec's device decoder, and AST's clips mode in bfloat16 against
+float32.  Marked ``cuda``; each test skips without a
 card.  This file imports neither JAX nor the JAX package, so it runs on a
 machine without them:
 
@@ -7,15 +9,18 @@ machine without them:
 """
 
 import dataclasses
+import hashlib
+import json
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from laughter_detection_icsi_tpu_torch import host_prep, inference
-from laughter_detection_icsi_tpu_torch.config import FEAT
+from laughter_detection_icsi_tpu_torch.config import AST_FEAT, FEAT
 from laughter_detection_icsi_tpu_torch.models import zoo
 from laughter_detection_icsi_tpu_torch.ops import fbank as tfb
 from laughter_detection_icsi_tpu_torch.ops import fbank_cuda
@@ -614,3 +619,64 @@ def test_shared_stem_matches_naive_windows_with_the_epilogue(card, precision, at
         run[shared] = inference.LaughterPipeline(model, settings=settings,
                                                  device=card).probs_for_waveform(wave)
     np.testing.assert_allclose(run[None], run[False], rtol=0, atol=atol)
+
+
+# --------------------------------------------------------------------------- #
+# AST's features and clips mode (the ast_audioset preset)
+# --------------------------------------------------------------------------- #
+
+#: The clips cell's limit on the mean logit gap against its reference.
+CLIPS_CELL = json.loads((Path(__file__).resolve().parent.parent / "benchmark" / "workloads"
+                         / "ast_audioset_bf16.clips_6ch_600s.json").read_text())
+
+#: SHA-256 of the 44-bin features of ``_wave((4, 999_120), seed=5)`` (a
+#: [4, bucket] batch, snip_edges framing) from the kernel as it stood before
+#: the 128-bin launches were added (NVIDIA H100 80GB HBM3).
+FBANK_44_DIGEST = "d868e74233e37283841affa07641edb506f30cc517fe0e3847294c17aeb8158d"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [16000 * 12 + 77, (6, 6923 * 160 + 400)],
+                         ids=["a 12 s track", "the clips cell's bucket batch"])
+def test_kernel_matches_plain_at_ast_features(card, shape):
+    x = torch.from_numpy(_wave(shape, seed=7)).to(card)
+    with inference.strict_fp32():
+        got = fbank_cuda.fbank_cuda(x, AST_FEAT)
+        want = tfb.fbank(x, AST_FEAT)
+    assert got.shape[-1] == 128 and got.shape[-2] == host_prep.num_frames(x.shape[-1], AST_FEAT)
+    torch.testing.assert_close(got, want, **TOL)
+    if x.ndim == 2:
+        assert got.shape[-2] == 6924
+        for c in range(x.shape[0]):
+            assert torch.equal(got[c], fbank_cuda.fbank_cuda(x[c].contiguous(), AST_FEAT))
+
+
+@pytest.mark.cuda
+def test_the_44_bin_launch_gives_the_bits_it_gave(card):
+    x = torch.from_numpy(_wave((4, 999_120), seed=5)).to(card)
+    with inference.strict_fp32():
+        got = fbank_cuda.fbank_cuda(x, host_prep.snip_cfg(FEAT))
+    digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+    assert digest == FBANK_44_DIGEST, digest
+
+
+@pytest.mark.cuda
+def test_clips_mode_bf16_within_the_cells_limit_of_float32(card):
+    from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline
+
+    model = zoo.build("AST", dropout_rate=0.0, linear_layer_size=768, filter_sizes=(), seed=5)
+    waves = [(_wave(16000 * s, seed=s) * 32767 / 3).astype(np.int16) for s in (25, 7)]
+    logits, probs = {}, {}
+    for precision in ("float32", "bfloat16"):
+        settings = inference.InferenceSettings(mode="clips", bucket_frames=1000, clip_batch=16,
+                                               precision=precision)
+        pipe = ShardedPipeline(model, feat_cfg=AST_FEAT, settings=settings, device=card)
+        pipe.logit_sink = []
+        before = fbank_cuda.launches
+        probs[precision], ts = pipe.probs_for_waveforms_device(waves)
+        assert fbank_cuda.launches - before == 3  # one a bucket batch of 1,000 frames
+        logits[precision] = torch.cat(pipe.logit_sink, dim=1).float()
+    assert ts == [2498, 698] and logits["float32"].shape == (2, 30, 527)
+    gap = float((logits["bfloat16"] - logits["float32"]).abs().mean())
+    assert gap < CLIPS_CELL["limits"]["logit_gap_mean"], gap
+    torch.testing.assert_close(probs["bfloat16"], probs["float32"], atol=0.05, rtol=0)

@@ -148,10 +148,12 @@ def test_device_defaults(models, monkeypatch):
     # bf16 on the card, as the JAX package's default on an accelerator.
     assert (card.chunk, card.bucket_frames, card.precision) == (6144, 6144, "bfloat16")
     # Same field names and defaults as the JAX settings, less the kernel
-    # switch (the port picks its featurizer by the tensor's device).
+    # switch (the port picks its featurizer by the tensor's device), plus
+    # the clips mode's geometry (the port's own: AST has no JAX twin).
     jfields = {f.name: f.default for f in dataclasses.fields(jinf.InferenceSettings)}
     tfields = {f.name: f.default for f in dataclasses.fields(tinf.InferenceSettings)}
-    assert tfields == {k: v for k, v in jfields.items() if k != "use_pallas_fbank"}
+    clips = {"clip_frames": 1024, "hop_frames": 100, "clip_batch": 60}
+    assert tfields == {**{k: v for k, v in jfields.items() if k != "use_pallas_fbank"}, **clips}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tinf.LaughterPipeline(models[3])
