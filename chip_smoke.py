@@ -32,7 +32,8 @@ Phases (any failure exits non-zero and prints no result):
    and the fp32 CUDA-core one (printed only); then the conv epilogue
    (ops/bn_act_cuda.py) at the sweep's band and tail shapes: in bf16 bit
    for bit the eager chain it replaces, its time beside that chain's and
-   its byte bound; in float32 ``layers.conv_bn_act`` (the bias in the
+   its byte bound, in NCHW and in NHWC (channels-last: the bf16 classify
+   step's layout); in float32 ``layers.conv_bn_act`` (the bias in the
    library's conv) bit for bit the composed chain;
 4. main path — full-width ``resnet_base`` ResNetBigger (numpy-seeded
    weights in a ``.ckpt.npz``) segments ~150 s of synthetic int16 audio
@@ -336,7 +337,8 @@ class EpilogueCount:
     EPILOGUES.count(path):`` zeroes the counter and, while it lasts, adds
     ``convs_per_bucket`` for each classify step (``classify_bucket``, as
     inference and the sharded pipeline call it).  On leaving it checks the
-    two are equal and keeps the count under ``path``.  A path with no
+    two are equal, and that the NHWC form took a bf16 path's launches and
+    no other's, and keeps the count under ``path``.  A path with no
     classify step (fused_conv, a train step) owes 0."""
 
     def __init__(self):
@@ -362,19 +364,26 @@ class EpilogueCount:
             saved = [m.classify_bucket for m in mods]
             for m in mods:
                 m.classify_bucket = counted
-            bn_act_cuda.launches = 0
+            bn_act_cuda.launches = bn_act_cuda.launches_nhwc = 0
             try:
                 yield
             finally:
                 for m, f in zip(mods, saved):
                     m.classify_bucket = f
-            self.check(path, bn_act_cuda.launches, owed[0])
+            self.check(path, bn_act_cuda.launches, owed[0], bn_act_cuda.launches_nhwc)
 
         return counting()
 
-    def check(self, path: str, launches: int, owed: int) -> None:
+    def check(self, path: str, launches: int, owed: int, nhwc=None) -> None:
+        """Also, where ``nhwc`` (the launches of the NHWC form) is given:
+        a bf16 path's launches (``_bf16``: a bf16 pipeline on the card) are
+        all NHWC, any other path's none."""
         check(launches == owed, f"{path}: {launches} conv epilogue launches where its classify "
                                 f"steps owe {owed}")
+        if nhwc is not None:
+            want = launches if path.endswith("_bf16") else 0
+            check(nhwc == want, f"{path}: {nhwc} of its {launches} conv epilogue launches in "
+                                f"NHWC where its precision owes {want}")
         self.by_path[path] = launches
 
 
@@ -701,7 +710,8 @@ def phase_epilogue(card, peak) -> dict:
     narrowest conv outputs, in its heaviest form (conv bias, BN, a residual,
     ReLU).  In bf16: bit for bit the eager chain it replaces, and the
     kernel's and the chain's device times beside the byte bound (y and the
-    residual read once, the output written once).  In float32, the form
+    residual read once, the output written once); the same for the
+    kernel's NHWC form on the channels-last tensors.  In float32, the form
     phases 4-10 and 16 run: ``layers.conv_bn_act`` (the library's conv
     adds the bias, the kernel the rest) bit for bit the composed chain."""
     import torch
@@ -738,8 +748,24 @@ def phase_epilogue(card, peak) -> dict:
               f"({nbytes / 1e6:.1f} MB) on {card}: bit-equal to the eager chain; kernel "
               f"{kernel_ms:.4f} ms | eager chain {chain_ms:.4f} ms | byte bound "
               f"{bound_ms:.4f} ms ({100 * bound_ms / kernel_ms:.1f}% of it reached)")
-        times[where] = dict(ms=kernel_ms, plain_ms=chain_ms, bound_ms=bound_ms)
-        del y, res
+        # The NHWC form (the bf16 classify step's): the same values
+        # channels-last, the band's residual a crop along H of a taller
+        # channels-last tensor, as the band convs pass it.
+        cl = torch.channels_last
+        y = y.contiguous(memory_format=cl)
+        res = (bf(n, c, h + 2, w).contiguous(memory_format=cl)[:, :, 2:] if layout == "strided"
+               else res.contiguous(memory_format=cl))
+        before = bn_act_cuda.launches_nhwc
+        with torch.inference_mode():
+            got, want = kernel(), chain()
+            check(bn_act_cuda.launches_nhwc - before == 1 and got.stride() == y.stride()
+                  and torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                  f"the NHWC epilogue differs from the eager chain at the {where} shape")
+            nhwc_ms = cuda_ms(kernel)
+        print(f"  NHWC at the {where} shape, {layout} residual: bit-equal to the eager chain; "
+              f"kernel {nhwc_ms:.4f} ms ({100 * bound_ms / nhwc_ms:.1f}% of the byte bound)")
+        times[where] = dict(ms=kernel_ms, plain_ms=chain_ms, bound_ms=bound_ms, nhwc_ms=nhwc_ms)
+        del y, res, got, want
 
         # float32 through conv_bn_act: a band's conv pads F alone (two rows
         # fewer out), the tail's pads both.

@@ -37,6 +37,9 @@ the card, as JAX's on an accelerator), on a bfloat16 copy of the model:
 the masked features are cast once at the model boundary, everything inside
 runs in bf16 and the probabilities come back as float32
 (``precision_scope`` keeps cuBLAS's bf16 reductions in float32, as XLA's).
+A ResNet-family bf16 copy on the card holds channels-last conv weights, so
+its windows-mode classify step runs on NHWC activations, the layout of
+cuDNN's bf16 convs there (``channels_last_classify``).
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ import torch.nn.functional as F
 from laughter_detection_icsi_tpu_torch import host_prep
 from laughter_detection_icsi_tpu_torch.config import AST_NORM_MEAN, AST_NORM_STD, FEAT, FeatConfig
 from laughter_detection_icsi_tpu_torch.data import audio as audio_io
-from laughter_detection_icsi_tpu_torch.models import fully_conv, shared_stem
+from laughter_detection_icsi_tpu_torch.models import fully_conv, shared_stem, zoo
 from laughter_detection_icsi_tpu_torch.models.ast import LAUGHTER_CLASS
 from laughter_detection_icsi_tpu_torch.ops import pcm_pack, smoothing, windows
 from laughter_detection_icsi_tpu_torch.ops.fbank_cuda import fbank_cuda
@@ -206,6 +209,17 @@ def cast_model_bf16(model: torch.nn.Module) -> torch.nn.Module:
     return copy.deepcopy(model).to(torch.bfloat16)
 
 
+def channels_last_classify(model: torch.nn.Module, dtype: torch.dtype, device_type: str) -> bool:
+    """Whether the windows-mode classify step runs ``model`` on channels-last
+    (NHWC) activations: a ResNet-family model in bfloat16 on the card,
+    where cuDNN's bf16 convs are NHWC tensor-core kernels that would
+    otherwise transpose every conv's input in and its output back out.
+    Its float32 convs are NCHW-native, and the CPU's composed chain stays
+    NCHW, as the JAX package's comparisons expect."""
+    return (dtype == torch.bfloat16 and device_type == "cuda"
+            and isinstance(model, zoo.ResNetFamily))
+
+
 def int16_transfer_eligible(meta, settings) -> bool:
     """May this source ship to the device as raw int16 (16-bit PCM or
     decoded shorten)?"""
@@ -300,9 +314,12 @@ def classify_bucket(
     to the settings' compute dtype, then one window per frame is
     classified, ``chunk`` windows at a time: through the shared stem, or as
     a naive window batch.  The classify step of every windows-mode path, a
-    multichannel batch's rows included.  Its spans: ``classify/track`` (the
-    mask, cast, pad and the stem's whole-track convs) and one
-    ``classify/chunk`` a chunk (its windows; the last also the splice)."""
+    multichannel batch's rows included.  Its activations take the layout
+    of the model's conv weights: NHWC for channels-last ones (a pipeline's
+    bf16 ResNet-family copy on the card), NCHW otherwise.  Its spans:
+    ``classify/track`` (the mask, cast, pad and the stem's whole-track
+    convs) and one ``classify/chunk`` a chunk (its windows; the last also
+    the splice)."""
     s = settings
     n_chunks = -(-s.bucket_frames // s.chunk)
     # Enough rows that the last window of the last chunk reads in bounds.
@@ -453,7 +470,9 @@ class LaughterPipeline:
     """Featurize + classify for one model, on one device.  In float32 the
     pipeline moves the caller's model to the device and classifies with it;
     in bfloat16 it classifies with a bf16 copy (``cast_model_bf16``) and
-    the caller's model is left as it was.  In the clips mode,
+    the caller's model is left as it was; a ResNet-family copy on the card
+    gets channels-last conv weights for the windows mode
+    (``channels_last_classify``).  In the clips mode,
     ``logit_sink`` (None, or a list) receives each bucket batch's clip
     logits."""
 
@@ -469,6 +488,11 @@ class LaughterPipeline:
         if settings.precision == "bfloat16":
             model = cast_model_bf16(model)
         self.model = model.to(self.device).eval()
+        if settings.mode == "windows" and channels_last_classify(
+                model, compute_dtype(settings.precision), self.device.type):
+            # Channels-last conv weights (the bf16 copy's, once): cuDNN then
+            # writes every conv's output NHWC, and the classify step keeps it.
+            self.model.to(memory_format=torch.channels_last)
         self.feat_cfg = feat_cfg
         self.settings = settings
         self.shared_stem = shared_stem.resolve_shared_stem(

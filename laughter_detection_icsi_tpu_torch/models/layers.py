@@ -78,8 +78,10 @@ def conv_bn_act(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.Module],
     """``relu(batch_norm(conv2d(x)) + residual)``: a conv of the ResNet
     family and what follows it, the ReLU only where ``relu``, the residual
     only where given.  A CUDA tensor outside train mode takes one launch of
-    the epilogue kernel (ops/bn_act_cuda.py) after the library's conv; it
-    rounds as the composed chain does, so the two give the same bits.
+    the epilogue kernel (ops/bn_act_cuda.py) after the library's conv, in
+    the memory format the conv wrote (NHWC where the conv's weight is
+    channels-last); it rounds as the composed chain does, so the two give
+    the same bits.
     Anything else (the CPU, train mode's batch statistics) runs the
     composed chain, the plain version."""
     kw = dict(stride=stride, padding=padding, dilation=dilation)
@@ -209,10 +211,12 @@ def bn_eval_affine(bn: nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def avg_pool2d(x: torch.Tensor, k: int) -> torch.Tensor:
     """torch AvgPool2d(k) semantics (stride k, no padding, floor output
-    size), computed as a mean over the reshaped k x k cells."""
+    size), computed as a mean over the reshaped k x k cells.  A
+    channels-last ``x`` is copied to NCHW first, so that the mean sums each
+    cell in the order it does for NCHW (the head's input is small)."""
     b, c, h, w = x.shape
     oh, ow = h // k, w // k
-    x = x[:, :, : oh * k, : ow * k].reshape(b, c, oh, k, ow, k)
+    x = x.contiguous()[:, :, : oh * k, : ow * k].reshape(b, c, oh, k, ow, k)
     return x.mean(dim=(3, 5))
 
 

@@ -18,10 +18,17 @@ padding.  So per chunk of windows:
 well (à-trous over the track, DEPTH2 = 6 exact edge rows per window).
 
 Layouts: tracks are time-major [T, C, F] as in the JAX package; the convs
-run on NCHW views (an explicit permute where JAX convolves NHCW).  BatchNorm
-is the eval expression of models/layers.py on every path, so the shared and
-naive computations round alike.  Valid for ResNetBigger / ResNet /
-ResNetNoBN (stage-1 stride 1, 3x3 'same' convs).
+run on NCHW views (an explicit permute where JAX convolves NHCW).  The
+memory under those views follows the model's conv weights: with NCHW
+weights every activation is NCHW and a track is a contiguous [T, C, F];
+with channels-last weights (the bf16 classify step on the card,
+``inference.channels_last_classify``) cuDNN writes every conv's output
+NHWC, a track is the [T, C, F] view of [T, F, C] memory, and the gathers,
+pads and splices here keep NHWC, so no conv transposes its input or output
+and nothing is copied to change layout.  BatchNorm is the eval expression
+of models/layers.py on every path, so the shared and naive computations
+round alike.  Valid for ResNetBigger / ResNet / ResNetNoBN (stage-1 stride
+1, 3x3 'same' convs).
 """
 
 from __future__ import annotations
@@ -83,12 +90,19 @@ def _conv_dil(x: torch.Tensor, conv, bn, **kw) -> torch.Tensor:
     return L.conv_bn_act(x, conv, bn, padding=(2, 1), dilation=(2, 1), **kw)
 
 
+def _track(x: torch.Tensor) -> torch.Tensor:
+    """A whole-track conv output [1, C, T, F] as the track [T, C, F]: a
+    copy into [T, C, F] memory from NCHW, the permuted view itself from
+    NHWC (its [T, F, C] memory is what the gathers and the convs read)."""
+    track = x[0].permute(1, 0, 2)
+    return track if x.is_contiguous(memory_format=torch.channels_last) else track.contiguous()
+
+
 def stem_track(model: ResNetFamily, feats: torch.Tensor) -> torch.Tensor:
     """Stem + stage 1 over the whole track: [T, F] -> [T, C, F].  Row t
     equals the stage-1 output row r of any window w with w + r = t and
     DEPTH <= r < window - DEPTH (interior rows)."""
-    x = model.block1(model.stem(feats[None, None]))
-    return x[0].permute(1, 0, 2).contiguous()
+    return _track(model.block1(model.stem(feats[None, None])))
 
 
 def _band_stem(model: ResNetFamily, x: torch.Tensor, top: bool) -> torch.Tensor:
@@ -125,7 +139,7 @@ def stem_track2(model: ResNetFamily, track1: torch.Tensor) -> torch.Tensor:
     of any window w with w + 2m = t, wherever the receptive field stays in
     the window interior (DEPTH2 <= m < H2 - DEPTH2)."""
     b0, b1 = model.block2
-    x = track1.permute(1, 0, 2)[None]  # [1, C1, T, F]
+    x = track1.permute(1, 0, 2)[None]  # [1, C1, T, F], NHWC from an NHWC track
     out = L.conv_bn_act(x, b0.conv1, b0.bn1, stride=(1, 2))
     # The stride-2 first block always has its shortcut (models/zoo.py).
     sc = L.conv_bn_act(x, b0.shortcut[0], b0.shortcut_bn(), relu=False, stride=(1, 2),
@@ -133,8 +147,7 @@ def stem_track2(model: ResNetFamily, track1: torch.Tensor) -> torch.Tensor:
     x = _conv_dil(out, b0.conv2, b0.bn2, residual=sc)
 
     out = _conv_dil(x, b1.conv1, b1.bn1)
-    x = _conv_dil(out, b1.conv2, b1.bn2, residual=x)
-    return x[0].permute(1, 0, 2).contiguous()  # [T, C2, F2]
+    return _track(_conv_dil(out, b1.conv2, b1.bn2, residual=x))  # [T, C2, F2]
 
 
 def _band2(model: ResNetFamily, band1: torch.Tensor, strip: torch.Tensor,
@@ -147,9 +160,8 @@ def _band2(model: ResNetFamily, band1: torch.Tensor, strip: torch.Tensor,
     telescope 18 -> 9 -> 8 -> 7 -> 6 (top; bottom 19 -> 9 -> ...), every
     conv padding only the window-edge side.  Returns [B, C2, DEPTH2, F//2]."""
     b0, b1 = model.block2
-    edge = band1.permute(0, 2, 1, 3)  # [B, DEPTH, C1, F]
-    x = torch.cat([edge, strip] if top else [strip, edge], dim=1)
-    x = x.permute(0, 2, 1, 3)  # NCHW [B, C1, H, F]
+    strip = strip.permute(0, 2, 1, 3)  # [B, C1, S, F]: NHWC from an NHWC track
+    x = torch.cat([band1, strip] if top else [strip, band1], dim=2)  # [B, C1, H, F]
 
     pad = (1, 0) if top else (0, 1)
     t0pad = (1, 0) if top else (0, 0)  # bottom centers touch no zero pad

@@ -621,6 +621,109 @@ def test_shared_stem_matches_naive_windows_with_the_epilogue(card, precision, at
     np.testing.assert_allclose(run[None], run[False], rtol=0, atol=atol)
 
 
+#: The epilogue's NHWC form at the sweep's band and tail shapes and at a
+#: channel count that is no multiple of the 16-byte vector: (shape,
+#: residual), the residual none, laid out as y, or a crop along H of a
+#: taller channels-last tensor (the band convs' residuals).
+NHWC_CASES = {
+    "band, no residual": ((6144, 64, 7, 44), None),
+    "tail, residual as y": ((6144, 16, 25, 11), "dense"),
+    "band, H-crop residual": ((6144, 64, 7, 44), "crop"),
+    "tail, H-crop residual": ((6144, 16, 25, 11), "crop"),
+    "5 channels, H-crop residual": ((96, 5, 7, 9), "crop"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(NHWC_CASES))
+def test_bn_act_nhwc_equals_the_eager_chain_bit_for_bit(card, dtype, case):
+    """The op on a channels-last ``y`` (bias, BN, the residual, ReLU): one
+    launch, counted as NHWC; a channels-last output with the eager chain's
+    bits on the same tensors; a crop read by 16-byte loads wherever the
+    channel count is a multiple of the vector."""
+    from laughter_detection_icsi_tpu_torch.models import layers as L
+    from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda
+
+    (n, c, h, w), residual = NHWC_CASES[case]
+    gen = torch.Generator().manual_seed(9)
+    nhwc = lambda *s: torch.randn(s, generator=gen).to(card, dtype).contiguous(
+        memory_format=torch.channels_last)
+    y, bias, bn = nhwc(n, c, h, w), torch.randn(c, generator=gen).to(card, dtype), _bn(
+        c, gen, dtype, card)
+    res = {None: None, "dense": lambda: nhwc(n, c, h, w),
+           "crop": lambda: nhwc(n, c, h + 2, w)[:, :, 2:]}[residual]
+    res = res() if res else None
+    before, before_nhwc = bn_act_cuda.launches, bn_act_cuda.launches_nhwc
+    with torch.inference_mode():
+        got = torch.ops.laughter_icsi_torch.bn_act(y, bias, bn.weight, bn.bias, bn.running_mean,
+                                                   bn.running_var, res, True, L.BN_EPS)
+        want = L.batch_norm(y + bias.reshape(1, -1, 1, 1), bn)
+        want = torch.relu(want + res if res is not None else want)
+    assert bn_act_cuda.launches - before == bn_act_cuda.launches_nhwc - before_nhwc == 1
+    assert got.stride() == y.stride() and got.dtype == dtype
+    assert torch.equal(_bits(got), _bits(want))
+    if residual == "crop":
+        vector = c % (16 // y.element_size()) == 0
+        assert bn_act_cuda.launch_args(y, res)[8] == (
+            bn_act_cuda._RES_PIXEL if vector else bn_act_cuda._RES_STRIDED)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["bfloat16", "float32"])
+def test_the_pipelines_classify_step_takes_the_epilogues_form_of_its_precision(card, precision):
+    """The preset's classify step on the model a pipeline holds, one chunk
+    a bucket.  bf16 (channels-last conv weights): 40 launches, all NHWC;
+    the stem's track NHWC; in its profile no cuDNN layout kernel but in the
+    1-channel stem convs, which pad their input; the composed chain's bits
+    on the same weights; the probabilities of the step on NCHW weights,
+    bit-equal where cuDNN runs the same conv kernels and within the
+    shared-stem card test's 2e-2 in any case.  float32: 40 launches, all
+    NCHW."""
+    from laughter_detection_icsi_tpu_torch.models import layers as L
+    from laughter_detection_icsi_tpu_torch.models import shared_stem
+    from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda
+    from laughter_detection_icsi_tpu_torch.utils import timing
+
+    model = zoo.build("ResNetBigger", linear_layer_size=48)
+    settings = inference.InferenceSettings(chunk=256, bucket_frames=256, precision=precision)
+    pipe = inference.LaughterPipeline(model, settings=settings, device=card)
+    bf16 = precision == "bfloat16"
+    feats = torch.from_numpy(_wave((256 + 99, 44), seed=16) * 10).to(card)
+    step = lambda m: inference.classify_bucket(m, feats, 300, settings, use_shared_stem=True)
+    with torch.inference_mode():
+        step(pipe.model)  # cuDNN's first calls
+        before, before_nhwc = bn_act_cuda.launches, bn_act_cuda.launches_nhwc
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities, record_shapes=True) as prof:
+            got = step(pipe.model)
+            torch.cuda.synchronize()
+        assert bn_act_cuda.launches - before == 40
+        assert bn_act_cuda.launches_nhwc - before_nhwc == (40 if bf16 else 0)
+        track = shared_stem.stem_track(pipe.model, feats.to(inference.compute_dtype(precision)))
+        assert (track.stride(1) == 1) == bf16
+        if not bf16:
+            return
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(L, "conv_bn_act", _composed)
+            composed = step(pipe.model)
+        nchw = step(inference.cast_model_bf16(model).to(card).eval())
+    assert torch.equal(got, composed)
+    gap = float((got - nchw).abs().max())
+    print(f"bf16 classify step, NHWC against NCHW weights: max |diff| {gap:.3e}")
+    assert gap <= 2e-2
+    names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    assert any("bn_act_nhwc_kernel" in k for k in names), names
+    # The ops that launched a layout kernel, by their input's channels: only
+    # the 1-channel stem convs (the track's and the two bands'), whose
+    # operands cuDNN pads to 8 channels; nothing goes back to NCHW.
+    layout = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+              and any(timing.kernel_kind(k.name) == "layout" for k in e.kernels)]
+    assert layout and {e.input_shapes[0][1] for e in layout} == {1}, [
+        (e.name, e.input_shapes, [k.name[:60] for k in e.kernels]) for e in layout]
+    assert not [k for k in names if "nhwcToNchw" in k]
+
+
 # --------------------------------------------------------------------------- #
 # AST's features and clips mode (the ast_audioset preset)
 # --------------------------------------------------------------------------- #

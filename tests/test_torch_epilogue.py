@@ -186,3 +186,67 @@ def test_chip_smoke_counts_every_classify_step_of_a_pipeline(sharded):
             else:
                 pipe.probs_for_waveform(waves[0])
     assert inference.classify_bucket is real and sharded_inference.classify_bucket is real
+
+
+def _cl(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("fmt", ["nchw", "nhwc"])
+def test_the_ops_fake_keeps_ys_memory_format(fmt):
+    """The fake (``torch.export``'s and every fake or meta tensor's view of
+    the op) gives ``y``'s memory format, as the kernel's output does."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    y = _x((2, 16, 5, 7), torch.bfloat16, seed=6)
+    y = _cl(y) if fmt == "nhwc" else y
+    res = _cl(_x((2, 16, 7, 7), torch.bfloat16, seed=7))[:, :, 2:]
+    with FakeTensorMode() as mode:
+        fake = torch.ops.laughter_icsi_torch.bn_act(mode.from_tensor(y), None, None, None, None,
+                                                    None, mode.from_tensor(res), True, 1e-5)
+    meta = torch.ops.laughter_icsi_torch.bn_act(y.to("meta"), None, None, None, None, None,
+                                                res.to("meta"), True, 1e-5)
+    for out in (fake, meta):
+        assert out.shape == y.shape and out.dtype == y.dtype and out.stride() == y.stride()
+
+
+def test_the_layout_check_takes_both_formats_and_refuses_the_rest():
+    y = _x((2, 16, 5, 7), torch.float32, seed=8)
+    assert bn_act_cuda.layout(y) == "nchw"
+    assert bn_act_cuda.layout(_cl(y)) == "nhwc"
+    # One channel, or one pixel: both formats are the same bytes; NCHW's form.
+    assert bn_act_cuda.layout(_cl(y[:, :1])) == "nchw"
+    assert bn_act_cuda.layout(_cl(y[:, :, :1, :1])) == "nchw"
+    for bad in (y.transpose(2, 3), y[:, :, 1:], _cl(y)[:, :, 1:], y[0], y[:, ::2]):
+        with pytest.raises(ValueError, match="contiguous in NCHW or channels-last"):
+            bn_act_cuda.layout(bad)
+
+
+#: The band convs' residuals: crops along H of the sweep's band and tail
+#: outputs ([B, 64, 7, 44] and [B, 16, 25, 11] at a small batch).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c,h,w", [(64, 7, 44), (16, 25, 11)], ids=["band", "tail"])
+def test_launch_args_give_nhwc_crops_the_vector_loads(dtype, c, h, w):
+    """``launch_args``' residual modes: laid out as ``y`` (16-byte loads in
+    either form); in NHWC a crop along H, either end (16-byte loads of one
+    pixel's channels); an NCHW crop, a residual in the other format, a
+    channel count that is no multiple of the vector, or a misaligned ``y``
+    (scalar loads)."""
+    dense, pixel, strided = (bn_act_cuda._RES_DENSE, bn_act_cuda._RES_PIXEL,
+                             bn_act_cuda._RES_STRIDED)
+    x = lambda *s: torch.zeros(s, dtype=dtype)
+    mode = lambda y, r: bn_act_cuda.launch_args(y, r)[8]
+    y, tall = x(3, c, h, w), x(3, c, h + 2, w)
+    assert bn_act_cuda.launch_args(y, None) == (3, c, h, w, 0, 0, 0, 0, strided, 1, 0)
+    assert mode(y, x(3, c, h, w)) == dense
+    assert mode(y, tall[:, :, 2:]) == mode(y, _cl(y)) == strided
+    args = bn_act_cuda.launch_args(_cl(y), _cl(tall)[:, :, 2:])
+    assert args[4:] == (c * (h + 2) * w, 1, c * w, c, pixel, 1, 1)
+    assert mode(_cl(y), _cl(tall)[:, :, :-2]) == pixel
+    assert mode(_cl(y), _cl(x(3, c, h, w))) == dense
+    assert mode(_cl(y), tall[:, :, 2:]) == mode(_cl(y), x(3, c, h, w)) == strided
+    odd, odd_tall = x(3, c + 1, h, w), x(3, c + 1, h + 2, w)
+    assert mode(_cl(odd), _cl(odd_tall)[:, :, 2:]) == strided
+    base = x(y.numel() + 1)
+    off = base[1:].view(3, h, w, c).permute(0, 3, 1, 2)
+    assert bn_act_cuda.launch_args(off, _cl(tall)[:, :, 2:])[8:] == (strided, 0, 1)

@@ -157,3 +157,41 @@ def test_device_defaults(models, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tinf.LaughterPipeline(models[3])
+
+
+def test_channels_last_only_for_a_bf16_resnet_on_the_card():
+    """The classify step's layout rule, a function of the dtype, the
+    device type and the model alone: NHWC for a bf16 ResNet-family model on
+    the card, NCHW for anything else (float32, the CPU, AST, the MLP)."""
+    from laughter_detection_icsi_tpu_torch.models import ast as ast_lib
+    from laughter_detection_icsi_tpu_torch.models import zoo
+
+    resnets = [zoo.build(a, linear_layer_size=48) for a in ("ResNetBigger", "ResNet",
+                                                            "ResNetNoBN")]
+    others = [zoo.build("MLPModel", linear_layer_size=100 * 44),
+              ast_lib.ASTModel(dim=32, depth=1, heads=2, mlp=64)]
+    for model in resnets + others:
+        for dtype in (torch.bfloat16, torch.float32):
+            for device_type in ("cuda", "cpu"):
+                want = (model in resnets and dtype == torch.bfloat16 and device_type == "cuda")
+                assert tinf.channels_last_classify(model, dtype, device_type) == want
+
+
+@pytest.mark.parametrize("mode", ["windows", "fused_conv"])
+def test_the_pipeline_converts_its_own_copy_once(models, monkeypatch, mode):
+    """Where the rule holds (forced here on the CPU), the windows-mode
+    pipeline gives its bf16 copy channels-last conv weights, and nothing
+    else: the linears, the caller's model and fused_conv stay as they
+    were.  On the CPU the rule does not hold, and the copy stays NCHW."""
+    tmodel = models[3]
+    settings = tinf.InferenceSettings(**SIZES, precision="bfloat16", mode=mode)
+    convs = lambda m: [p for p in m.parameters() if p.ndim == 4]
+    nchw = lambda m: all(p.stride() == p.contiguous().stride() for p in convs(m))
+    nhwc = lambda m: all(p.stride() == p.contiguous(memory_format=torch.channels_last).stride()
+                         for p in convs(m))
+    assert nchw(tinf.LaughterPipeline(tmodel, settings=settings, device="cpu").model)
+    monkeypatch.setattr(tinf, "channels_last_classify", lambda m, dtype, device_type: True)
+    pipe = tinf.LaughterPipeline(tmodel, settings=settings, device="cpu")
+    assert (nhwc if mode == "windows" else nchw)(pipe.model)
+    assert all(p.is_contiguous() for p in pipe.model.parameters() if p.ndim < 4)
+    assert nchw(tmodel) and next(tmodel.parameters()).dtype == torch.float32

@@ -71,3 +71,42 @@ def test_shared_stem_guards_match_jax():
         tss.resolve_shared_stem(True, "MLPModel", 100)
     with pytest.raises(ValueError, match="supports_track2"):
         tss.chunk_probs_from_track2(None, None, None, torch.zeros(1, 44), 0, 1, window=99)
+
+
+@pytest.mark.parametrize("window", [100, 99], ids=["track2", "track1"])
+def test_channels_last_weights_keep_the_classify_step_nhwc(rng, window, monkeypatch):
+    """The card's bf16 layout, on the CPU in float32 at the preset's
+    widths: with channels-last conv weights every conv of a classify step
+    writes NHWC, the tracks are permuted views of NHWC memory, and the
+    gathers, pads and splices hand each conv an NHWC input (all but the
+    bottom band's stride-2 shortcut, which reads a crop).  The
+    probabilities equal the NCHW step's within the naive batch's 1e-6: the
+    CPU's NHWC convs sum in another order."""
+    import copy
+
+    from laughter_detection_icsi_tpu_torch import inference
+    from laughter_detection_icsi_tpu_torch.models import layers as L
+
+    *_, tmodel, feats = _track_inputs("ResNetBigger", dict(linear_layer_size=48), rng)
+    nhwc = copy.deepcopy(tmodel).to(memory_format=torch.channels_last)
+    settings = inference.InferenceSettings(chunk=16, bucket_frames=16, window=window)
+    ft = torch.from_numpy(feats[: 16 + window - 1])
+    seen = []
+    real = L.conv_bn_act
+
+    def spy(x, conv, *a, **k):
+        y = real(x, conv, *a, **k)
+        seen.append((x.is_contiguous(memory_format=torch.channels_last),
+                     y.is_contiguous(memory_format=torch.channels_last)))
+        return y
+
+    with torch.inference_mode():
+        want = inference.classify_bucket(tmodel, ft, 90, settings, use_shared_stem=True)
+        monkeypatch.setattr(L, "conv_bn_act", spy)
+        got = inference.classify_bucket(nhwc, ft, 90, settings, use_shared_stem=True)
+        assert len(seen) == (40 if window == 100 else 30)
+        track = tss.stem_track(nhwc, ft)
+    assert all(out for _, out in seen)
+    assert sum(not x for x, _ in seen) == (1 if window == 100 else 0)
+    assert track.shape == (ft.shape[0], 64, 44) and track.stride() == (44 * 64, 1, 64)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)

@@ -120,6 +120,10 @@ KERNELS = [
     # The conv epilogue (csrc/bn_act.cu): elementwise work, counted there.
     ("void bn_act_kernel<__nv_bfloat16, 8>(BnActArgs<__nv_bfloat16>)", "elementwise"),
     ("void bn_act_kernel<float, 4>(BnActArgs<float>)", "elementwise"),
+    # Its NHWC form, and the splice of channels-last pieces.
+    ("void bn_act_nhwc_kernel<__nv_bfloat16, 8>(BnActArgs<__nv_bfloat16>)", "elementwise"),
+    ("void at::native::(anonymous namespace)::CatArrayBatchedCopy_alignedK_contig<at::native::(anonymous n",
+     "cat"),
 ]
 
 
