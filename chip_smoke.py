@@ -200,13 +200,8 @@ Phases (any failure exits non-zero and prints no result):
    phase 10's tables; the coordinator featurizes into a fresh cache first,
    rank 1 after the barrier): its checkpoint took one process's step (the
    rule of (b), from the checkpoints' Adam moments);
-15. the bench — ``python -m laughter_detection_icsi_tpu_torch.bench`` in a
-   subprocess (``BENCH_HISTORY=off``): the default mode within a 90 s
-   budget (rc 0, one JSON line, ``platform`` cuda, ``value`` > 0,
-   ``device_x_realtime`` and ``fused_conv_device_x_realtime`` present; its
-   profiled 600 s windows call launching the fbank kernel once per bucket,
-   10, as its stderr's breakdown reads), then ``--train`` within 60 s
-   (``value`` and ``deterministic_samples_per_s`` > 0); the seconds of each;
+15. retired: it ran the port's bench twin, which went once ``benchmark/``
+   measured the port (``python3 benchmark/run.py --workload <cell>``);
 16. parity, demos and tools — (a) the drill's inputs
    (tests/fixtures/parity_inputs.py: the synthetic transcripts, Btr001's two
    channels of 2.5 s, a full-width ``resnet_base`` checkpoint from numpy
@@ -233,8 +228,7 @@ Phases (any failure exits non-zero and prints no result):
 18. the card, one JSON line of the kernels (the fbank kernel at the main
    path's bucket and its time on the clips bucket row; ``launches`` counted
    on phase 8's sweep, the launches of every path, the bf16 paths', the e2e
-   artifact's, each rank's of phase 14, the bench's profiled call, phase
-   16's paths and phase 17's AST sweep included, beside them)
+   artifact's, each rank's of phase 14, phase 16's paths and phase 17's AST sweep included, beside them)
    and of the conv epilogue (``launches`` counted on phase 11's bf16 sweep,
    beside the launches of each path counted: phases 4-8, 11 and 13, the
    train steps of phases 9 and 12, and phase 16's parity run), then the
@@ -1368,16 +1362,15 @@ def local_shards(card, ctx, chans, rows, equal, seg, thr, want) -> int:
 def sweep_over_cards(ctx, n_cards: int) -> None:
     """(b): ``cli/sweep`` with ``--device cuda`` on a small corpus (Bmr021
     4 x 60 s, Bns001 3 x 30 s) splits each meeting over every card and
-    writes the TextGrids of ``--device cuda:0``, byte for byte; the
-    bench's ``--sharded`` pipeline holds every card."""
+    writes the TextGrids of ``--device cuda:0``, byte for byte; a
+    ``ShardedPipeline`` over ``mesh.local_devices("cuda")`` holds every
+    card."""
     import contextlib
     import filecmp
     import io
 
-    import torch
-
-    from laughter_detection_icsi_tpu_torch import bench
     from laughter_detection_icsi_tpu_torch.cli import sweep
+    from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline, mesh
 
     root = Path(ctx["work"]) / "cards"
     corpus = (("Bmr021", 4, 60, "pcm"), ("Bns001", 3, 30, "pcm"))
@@ -1401,12 +1394,12 @@ def sweep_over_cards(ctx, n_cards: int) -> None:
     check(bool(grids) and grids == sorted(q.relative_to(b) for q in b.rglob("*.TextGrid"))
           and all(filecmp.cmp(a / g, b / g, shallow=False) for g in grids),
           "(b) sweep --device cuda: TextGrids differ from --device cuda:0's")
-    n_bench = bench.build_pipeline(torch.device("cuda"), sharded=True).n_shards
-    check(n_bench == n_cards, f"(b) bench --sharded's pipeline holds {n_bench} shards")
+    n_shards = ShardedPipeline(ctx["model"], devices=mesh.local_devices("cuda")).n_shards
+    check(n_shards == n_cards, f"(b) a ShardedPipeline on every card holds {n_shards} shards")
     print(f"(b) sweep --device cuda over {n_cards} cards: {len(grids)} TextGrids byte-equal to "
           f"--device cuda:0's ({walls['cuda']:.2f} s and {walls['cuda:0']:.2f} s for "
-          f"{audio_s:.3f} audio-s, model load and warm-up included); bench --sharded's "
-          f"pipeline: {n_bench} shards")
+          f"{audio_s:.3f} audio-s, model load and warm-up included); a ShardedPipeline on "
+          f"every card: {n_shards} shards")
 
 
 #: The corpus phase 8 sweeps: (meeting, channels, seconds, encoding); 69.3
@@ -2017,7 +2010,7 @@ def phase_train(card, work: Path, ctx: dict) -> int:
               f"{peak / 2**30:.3f} GiB")
         if b == TRAIN_SIZES[0]:
             # What cli/train's cuDNN flags (deterministic, no autotuning)
-            # cost at the preset's batch (bench --train measures B = 1024):
+            # cost at the preset's batch:
             # in turns with the flags as they are (A B B A B A), best of 3
             # each, as the host-bound rate drifts over a run.
             from laughter_detection_icsi_tpu_torch.cli.train import CUDNN_FLAGS, cudnn_flags
@@ -3257,62 +3250,6 @@ def phase_multiprocess(card, work: Path, ctx: dict) -> dict:
     return dict(sweep=sweep_launches, train=train_launches)
 
 
-#: Phase 15's budgets (BENCH_TOTAL_BUDGET_S) for the bench's default and
-#: --train modes.
-BENCH_BUDGETS = {"default": 90, "--train": 60}
-
-
-def phase_bench(card) -> dict:
-    """The bench's contract on the card (see the module docstring, phase
-    15).  Returns {mode: (record, seconds)} and, under 'launches', the fbank
-    launches of the default mode's profiled call as its stderr reads them
-    (None where it printed no breakdown)."""
-    out = {}
-    for mode, budget in BENCH_BUDGETS.items():
-        args = [] if mode == "default" else [mode]
-        env = dict(os.environ, BENCH_HISTORY="off", BENCH_TOTAL_BUDGET_S=str(budget))
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "laughter_detection_icsi_tpu_torch.bench", *args],
-                           cwd=REPO, env=env, capture_output=True, text=True, timeout=budget + 120)
-        secs = time.perf_counter() - t0
-        lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
-        check(r.returncode == 0 and len(lines) == 1,
-              f"bench {mode}: rc {r.returncode}, {len(lines)} stdout lines (want 1); stderr "
-              f"ends: {r.stderr[-3000:]}")
-        rec = json.loads(lines[-1])
-        check(rec.get("platform") == "cuda" and (rec.get("value") or 0) > 0,
-              f"bench {mode}: platform {rec.get('platform')!r}, value {rec.get('value')!r}")
-        if mode == "default":
-            missing = [k for k in ("device_x_realtime", "fused_conv_device_x_realtime")
-                       if k not in rec]
-            check(not missing, f"bench: {missing} missing from {rec}")
-            m = re.search(r"fbank kernel: (\d+) launches", r.stderr)
-            out["launches"] = int(m.group(1)) if m else None
-            buckets = -(-rec["audio_s"] * 100 // 6144)
-            check(out["launches"] in (None, buckets),
-                  f"bench: the profiled {rec['audio_s']} s call launched the fbank kernel "
-                  f"{out['launches']} times for {buckets} buckets")
-            print(f"bench (default, budget {budget} s) in {secs:.1f} s on {card}: "
-                  f"{rec['value']}x realtime e2e ({rec['audio_s']} s of audio, "
-                  f"{rec['precision']}), device_x_realtime {rec['device_x_realtime']}, "
-                  f"fused_conv_device_x_realtime {rec['fused_conv_device_x_realtime']}, "
-                  f"upload_s {rec.get('upload_s')}, warmup_s {rec['warmup_s']}; the profiled "
-                  f"call's fbank launches: "
-                  + (f"{out['launches']} ({buckets} buckets)" if out["launches"] is not None
-                     else "not measured (no breakdown printed)"))
-        else:
-            check((rec.get("deterministic_samples_per_s") or 0) > 0,
-                  f"bench --train: deterministic_samples_per_s {rec.get('deterministic_samples_per_s')!r}")
-            print(f"bench --train (budget {budget} s) in {secs:.1f} s on {card}: B = "
-                  f"{rec['batch_size']} {rec['precision']}: {rec['value']} samples/s under "
-                  f"cli/train's flags, deterministic {rec['deterministic_samples_per_s']}, "
-                  f"PyTorch's default {rec.get('nondeterministic_samples_per_s')} (cost "
-                  f"{rec.get('deterministic_cost')}; best of 2 each, in turns: "
-                  f"{[r[1] for r in rec.get('readings', [])]})")
-        out[mode] = (rec, secs)
-    return out
-
-
 PARITY_GOLDENS = REPO / "tests" / "fixtures" / "parity_goldens"
 PARITY_PROB_ATOL = 1e-4  # the card against the port on the CPU (phase 4's limit)
 
@@ -3388,8 +3325,10 @@ def phase_parity(card, work: Path, ctx: dict) -> dict:
         for name, diff, tol in rows:
             r = report["configs"][name]
             print(f"  parity {name}: {r['status']}, {diff} {r[diff]:.3e} (limit {r[tol]:g})")
+        preset, model = parity._load_model(
+            parity.build_parser().parse_args(inputs.argv(PARITY_GOLDENS)))
         pipe = inference.LaughterPipeline(
-            parity._load_model(parity.build_parser().parse_args(inputs.argv(PARITY_GOLDENS))),
+            model, feat_cfg=preset.feat,
             settings=inference.settings_from_flags(device="cuda", precision="float32"),
             device="cuda")
         card_probs = [pipe.probs_for_file(str(inputs.audio_dir / parity_inputs.MEETING
@@ -3793,8 +3732,6 @@ def main(through: int = 17) -> int:
         artifact = phase_export(card, work, ctx)
         header("14. multi-process")
         multi = phase_multiprocess(card, work, ctx)
-        header("15. the bench")
-        benched = phase_bench(card)
         header("16. parity, demos and tools")
         tools = phase_parity(card, work, ctx)
         header("17. AST clips sweep")
@@ -3815,7 +3752,7 @@ def main(through: int = 17) -> int:
                **bf16, "e2e_artifact": artifact,
                **{f"multiprocess_sweep_rank{r}": n for r, n in enumerate(multi["sweep"])},
                **{f"multiprocess_train_features_rank{r}": n for r, n in enumerate(multi["train"])},
-               "bench_profiled_windows_call": benched["launches"], **tools,
+               **tools,
                "sweep_clips_bf16": clips}
     print(f"fbank launches per path: windows {ctx['launches']} ({ctx['n_buckets']} buckets), "
           f"fused_conv {fused} (one file), serve replay {streamed} ({ctx['n_buckets']} buckets "
@@ -3828,8 +3765,7 @@ def main(through: int = 17) -> int:
           f"{bf16['sweep_bf16']}; the e2e artifact {artifact} ({ctx['n_buckets']} buckets); "
           f"two processes: the sweep {multi['sweep']} by rank (each its 2 channels' bucket "
           f"batches + a warm-up), cli/train's featurization {multi['train']} by rank (rank 0 "
-          f"first, rank 1 after the barrier); the bench's profiled windows call "
-          f"{benched['launches']} (its stderr's breakdown); the parity CLI's features check "
+          f"first, rank 1 after the barrier); the parity CLI's features check "
           f"{tools['parity_features']} (one a file) and its whole run {tools['parity_run']}; "
           f"the demo {tools['demo_features']} featurizing and {tools['demo_inference']} "
           f"classifying, the streaming demo {tools['streaming_demo']}; the AST sweep {clips} "

@@ -78,34 +78,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.model_path is None and not args.random_init:
         raise SystemExit("--model_path is required (or --random_init)")
 
-    from laughter_detection_icsi_tpu_torch.config import MODEL_MAP
-
-    if args.config not in MODEL_MAP:
-        raise SystemExit(
-            f"--config: unknown preset {args.config!r} (choose from {sorted(MODEL_MAP)})"
-        )
-    if MODEL_MAP[args.config].mode != "windows":
-        raise SystemExit(
-            f"--config {args.config}: {MODEL_MAP[args.config].model} is not exported: its "
-            "artifacts would be the window classifier ([B, 1, 100, 44] windows) or the "
-            f"windows-mode bucket body, and it runs only in mode {MODEL_MAP[args.config].mode!r}"
-        )
-
     from laughter_detection_icsi_tpu_torch import export as export_lib
     from laughter_detection_icsi_tpu_torch import inference
-    from laughter_detection_icsi_tpu_torch.models import zoo
-    from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
+    from laughter_detection_icsi_tpu_torch.cli.presets import preset_model
 
+    # The artifacts are the window classifier ([B, 1, 100, 44] windows) or
+    # the windows-mode bucket body.
+    preset, model = preset_model(args.config, "cli/export_model", ("windows",),
+                                 checkpoint=None if args.random_init else args.model_path)
     device = inference.resolve_device(args.device)
-    preset = MODEL_MAP[args.config]
-    model = zoo.build(preset.model, dropout_rate=0.0,
-                      linear_layer_size=preset.linear_layer_size,
-                      filter_sizes=preset.filter_sizes)
-    if not args.random_init:
-        found = ckpt_lib.resolve_checkpoint(args.model_path)
-        if found is None:
-            raise SystemExit(f"Model checkpoint not found at {args.model_path}")
-        model.load_state_dict(ckpt_lib.load_checkpoint(found)["state_dict"], strict=True)
     model.eval()
 
     if args.what == "windows":
@@ -120,7 +101,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             precision=args.precision, device=device,
         )
         wave_dtype = args.wave_dtype if args.wave_dtype is not None else "int16"
-        pipe = inference.LaughterPipeline(model, settings=settings, device=device)
+        pipe = inference.LaughterPipeline(model, feat_cfg=preset.feat, settings=settings,
+                                          device=device)
         exported, wave_len = export_lib.export_bucket_pipeline(
             pipe, int16_in=(wave_dtype == "int16"))
         sig = (f"([{wave_len}] {wave_dtype} bucket buffer (host_prep.bucket_inputs), "

@@ -115,37 +115,30 @@ def _audio_files(audio_dir: str) -> Dict[str, str]:
     return out
 
 
+#: The modes the drill runs: the presets with a JAX twin, whose goldens it
+#: holds the port to.
+MODES = ("windows",)
+
+
 def _load_model(args):
-    """The preset's model at dropout 0 with --model_path's weights, or None
-    without --model_path."""
-    from laughter_detection_icsi_tpu_torch.config import MODEL_MAP
-    from laughter_detection_icsi_tpu_torch.models import zoo
-    from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
+    """(preset, model): the preset's model at dropout 0 with --model_path's
+    weights, or (None, None) without --model_path."""
+    from laughter_detection_icsi_tpu_torch.cli.presets import preset_model
 
     if args.model_path is None:
-        return None
-    preset = MODEL_MAP[args.config]
-    model = zoo.build(
-        preset.model,
-        dropout_rate=0.0,
-        linear_layer_size=preset.linear_layer_size,
-        filter_sizes=preset.filter_sizes,
-    )
-    best = ckpt_lib.resolve_checkpoint(args.model_path)
-    if best is None:
-        raise SystemExit(f"Model checkpoint not found at {args.model_path}")
-    model.load_state_dict(ckpt_lib.load_checkpoint(best)["state_dict"], strict=True)
-    return model
+        return None, None
+    return preset_model(args.config, "cli/parity", MODES, checkpoint=args.model_path)
 
 
-def _pipeline(args, model):
+def _pipeline(args, preset, model):
     from laughter_detection_icsi_tpu_torch import inference
 
     settings = inference.settings_from_flags(
         chunk=args.chunk, bucket_frames=args.bucket_frames, precision=PRECISION,
         device=args.device,
     )
-    return inference.LaughterPipeline(model, settings=settings, device=args.device)
+    return inference.LaughterPipeline(model, feat_cfg=preset.feat, settings=settings,
+                                      device=args.device)
 
 
 # --------------------------------------------------------------------------- #
@@ -488,9 +481,9 @@ def _write_goldens(args, gdir: Path, audio: Dict[str, str]) -> dict:
         np.save(gdir / "features" / f"{stem}.npy",
                 compute_track_features(wave, device=args.device))
 
-    model = _load_model(args)
+    preset, model = _load_model(args)
     if model is not None:
-        pipe = _pipeline(args, model)
+        pipe = _pipeline(args, preset, model)
         (gdir / "probs").mkdir(exist_ok=True)
         (gdir / "textgrids").mkdir(exist_ok=True)
         for stem, path in audio.items():
@@ -537,19 +530,10 @@ def _write_goldens(args, gdir: Path, audio: Dict[str, str]) -> dict:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     # Named arg-only error before any heavy work.
-    from laughter_detection_icsi_tpu_torch.config import MODEL_MAP
+    from laughter_detection_icsi_tpu_torch.cli.presets import preset_for
     from laughter_detection_icsi_tpu_torch.inference import resolve_device
 
-    if args.config not in MODEL_MAP:
-        raise SystemExit(
-            f"--config: unknown preset {args.config!r} "
-            f"(choose from {sorted(MODEL_MAP)})"
-        )
-    if MODEL_MAP[args.config].mode != "windows":
-        raise SystemExit(
-            f"--config {args.config}: the parity drill holds the port to the JAX package's "
-            "goldens, and this preset has no JAX twin"
-        )
+    preset_for(args.config, "cli/parity", MODES)
     resolve_device(args.device)  # no card for --device cuda raises here
     gdir = Path(args.goldens)
     audio = _audio_files(args.audio_dir)
@@ -569,8 +553,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
 
     wanted = [c.strip() for c in args.configs.split(",") if c.strip()]
-    model = _load_model(args)
-    pipe = _pipeline(args, model) if model is not None else None
+    preset, model = _load_model(args)
+    pipe = _pipeline(args, preset, model) if model is not None else None
 
     import tempfile
 

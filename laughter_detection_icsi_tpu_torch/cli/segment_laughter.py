@@ -120,16 +120,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
     from laughter_detection_icsi_tpu_torch import inference
-    from laughter_detection_icsi_tpu_torch.config import MODEL_MAP, parse_float_list
-    from laughter_detection_icsi_tpu_torch.models import zoo
-    from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
+    from laughter_detection_icsi_tpu_torch.cli.presets import preset_model
+    from laughter_detection_icsi_tpu_torch.config import parse_float_list
 
-    if args.config not in MODEL_MAP:
-        raise SystemExit(
-            f"--config: unknown preset {args.config!r} "
-            f"(choose from {sorted(MODEL_MAP)})"
-        )
-    preset = MODEL_MAP[args.config]
+    preset, model = preset_model(args.config, "cli/segment_laughter", ("windows", "clips"),
+                                 checkpoint=None if args.random_init else args.model_path)
     thresholds = parse_float_list(args.thresholds, "--thresholds")
     min_lengths = parse_float_list(args.min_lengths, "--min_lengths")
     save_audio = strtobool(args.save_to_audio_files)
@@ -143,17 +138,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         mode=args.mode or preset.mode,
         transfer_codec=args.transfer_codec,
     )
-    model = zoo.build(
-        preset.model,
-        dropout_rate=0.0,
-        linear_layer_size=preset.linear_layer_size,
-        filter_sizes=preset.filter_sizes,
-    )
-    if not args.random_init:
-        best = ckpt_lib.resolve_checkpoint(args.model_path)
-        if best is None:
-            raise SystemExit(f"Model checkpoint not found at {args.model_path}")
-        model.load_state_dict(ckpt_lib.load_checkpoint(best)["state_dict"], strict=True)
     try:
         pipe = inference.LaughterPipeline(model, feat_cfg=preset.feat, settings=settings,
                                           device=args.device)

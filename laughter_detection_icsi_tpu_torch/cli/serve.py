@@ -112,22 +112,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     import numpy as np
 
     from laughter_detection_icsi_tpu_torch import host_prep, inference
-    from laughter_detection_icsi_tpu_torch.config import FEAT, MODEL_MAP
-    from laughter_detection_icsi_tpu_torch.models import zoo
+    from laughter_detection_icsi_tpu_torch.cli.presets import preset_model
+    from laughter_detection_icsi_tpu_torch.config import FEAT
     from laughter_detection_icsi_tpu_torch.ops.smoothing import StreamingEventDetector
     from laughter_detection_icsi_tpu_torch.parallel import mesh
-    from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
 
-    if args.config not in MODEL_MAP:
-        raise SystemExit(
-            f"--config: unknown preset {args.config!r} (choose from {sorted(MODEL_MAP)})"
-        )
-    if MODEL_MAP[args.config].mode != "windows":
-        raise SystemExit(
-            f"--config {args.config}: serve streams through the sessions, which run the "
-            f"windows mode; this preset runs in mode {MODEL_MAP[args.config].mode!r} "
-            "(use cli/segment_laughter or cli/sweep)"
-        )
     try:
         devices = mesh.local_devices(args.device)
     except ValueError as e:
@@ -136,14 +125,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         chunk=args.chunk, bucket_frames=args.bucket_frames,
         precision=args.precision, device=devices[0],
     )
-    preset = MODEL_MAP[args.config]
-    model = zoo.build(preset.model, dropout_rate=0.0,
-                      linear_layer_size=preset.linear_layer_size,
-                      filter_sizes=preset.filter_sizes)
-    best = ckpt_lib.resolve_checkpoint(args.model_path)
-    if best is None:
-        raise SystemExit(f"Model checkpoint not found at {args.model_path}")
-    model.load_state_dict(ckpt_lib.load_checkpoint(best)["state_dict"], strict=True)
+    # The sessions stream the windows mode.
+    preset, model = preset_model(args.config, "cli/serve", ("windows",),
+                                 checkpoint=args.model_path)
 
     n_ch = args.channels
     # Event times divide frame indices by this.  File replay takes the
@@ -167,7 +151,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             fps = host_prep.num_frames(len(wave)) / duration
     if n_ch == 1:
         devices = devices[:1]
-        pipe = inference.LaughterPipeline(model, settings=settings, device=devices[0])
+        pipe = inference.LaughterPipeline(model, feat_cfg=preset.feat, settings=settings,
+                                          device=devices[0])
         sess = inference.StreamingSession(pipe)
         feed = lambda chunks: sess.feed(chunks[0])
         finish = sess.finish
@@ -178,7 +163,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             ShardedStreamingSession,
         )
 
-        pipe = ShardedPipeline(model, settings=settings, devices=devices)
+        pipe = ShardedPipeline(model, feat_cfg=preset.feat, settings=settings, devices=devices)
         sharded = ShardedStreamingSession(pipe, n_channels=n_ch)
         feed, finish = sharded.feed, sharded.finish
         # Every shard takes rows of the batch, so every card is warmed.

@@ -139,26 +139,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     import torch
 
     from laughter_detection_icsi_tpu_torch import inference
-    from laughter_detection_icsi_tpu_torch.config import (
-        MODEL_MAP, parse_float_list, split_of_meeting)
+    from laughter_detection_icsi_tpu_torch.cli.presets import preset_model
+    from laughter_detection_icsi_tpu_torch.config import parse_float_list, split_of_meeting
     from laughter_detection_icsi_tpu_torch.data.audio import find_track_audio
     from laughter_detection_icsi_tpu_torch.eval import textgrid as tg
     from laughter_detection_icsi_tpu_torch.eval import transcript as transcript_lib
-    from laughter_detection_icsi_tpu_torch.models import zoo
     from laughter_detection_icsi_tpu_torch.ops import smoothing
     from laughter_detection_icsi_tpu_torch.parallel import ShardedPipeline, mesh
     from laughter_detection_icsi_tpu_torch.runtime import native
-    from laughter_detection_icsi_tpu_torch.train import checkpoint as ckpt_lib
     from laughter_detection_icsi_tpu_torch.utils.profiling import ThroughputMeter, trace
 
-    if args.config not in MODEL_MAP:
-        raise SystemExit(
-            f"--config: unknown preset {args.config!r} "
-            f"(choose from {sorted(MODEL_MAP)})"
-        )
-    preset = MODEL_MAP[args.config]
     if args.model_path is None and not args.random_init:
         raise SystemExit("--model_path is required (or --random_init)")
+    preset, model = preset_model(args.config, "cli/sweep", ("windows", "clips"),
+                                 checkpoint=None if args.random_init else args.model_path)
     thresholds = parse_float_list(args.thresholds, "--thresholds")
     min_lengths = parse_float_list(args.min_lengths, "--min_lengths")
 
@@ -202,17 +196,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         mode=args.mode or preset.mode,
         transfer_codec=args.transfer_codec,
     )
-    model = zoo.build(
-        preset.model,
-        dropout_rate=0.0,
-        linear_layer_size=preset.linear_layer_size,
-        filter_sizes=preset.filter_sizes,
-    )
-    if not args.random_init:
-        ckpt = ckpt_lib.resolve_checkpoint(args.model_path)
-        if ckpt is None:
-            raise SystemExit(f"Model checkpoint not found at {args.model_path}")
-        model.load_state_dict(ckpt_lib.load_checkpoint(ckpt)["state_dict"], strict=True)
     try:
         pipe = ShardedPipeline(model, feat_cfg=preset.feat, settings=settings, devices=devices)
     except ValueError as e:  # a preset in a mode that cannot run it

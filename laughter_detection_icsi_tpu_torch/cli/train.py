@@ -37,8 +37,8 @@ On ``cuda`` the run takes cuDNN's deterministic algorithms and no
 autotuning (``CUDNN_FLAGS``), so two steps on the same values agree bit for
 bit and a resumed run ends where an uninterrupted one does, as the JAX
 package's does under XLA; ``main`` restores the caller's flags when it
-returns.  What the mode costs is in PERF.md (``bench --train`` measures
-both settings).
+returns.  What the mode costs is in PERF.md (``chip_smoke.py`` phase 9 (e)
+measures both settings).
 """
 
 from __future__ import annotations
@@ -178,15 +178,14 @@ def _train(argv: Optional[List[str]]) -> int:
         if getattr(args, flag) != parser.get_default(flag):
             print(f"note: --{flag} is accepted for compatibility and ignored")
 
-    from laughter_detection_icsi_tpu_torch.config import MODEL_MAP
+    from laughter_detection_icsi_tpu_torch.cli.presets import PresetError, preset_model
 
-    if args.config not in MODEL_MAP:
-        parser.error(f"--config: unknown preset {args.config!r} (choose from {sorted(MODEL_MAP)})")
-    preset = MODEL_MAP[args.config]
-    if preset.mode != "windows":
-        parser.error(f"--config {args.config}: the port does not train {preset.model} "
-                     f"(architecture {preset.model!r}); it trains the window classifiers on "
-                     "100 x 44 windows")
+    # The port trains the window classifiers on 100 x 44 windows.
+    try:
+        preset, model = preset_model(args.config, "cli/train", ("windows",),
+                                     dropout_rate=float(args.dropout_rate), seed=args.seed)
+    except PresetError as e:
+        parser.error(str(e))
     if args.batch_size is not None:
         # type=str for the reference's flags: parsed and checked here.
         try:
@@ -218,12 +217,10 @@ def _train(argv: Optional[List[str]]) -> int:
 
     from laughter_detection_icsi_tpu_torch.data import (
         FeatureCache, LadDataset, ResidentLadDataset, load_split_df)
-    from laughter_detection_icsi_tpu_torch.models import zoo
     from laughter_detection_icsi_tpu_torch.train import Adam, TrainLoop, Trainer
     from laughter_detection_icsi_tpu_torch.utils.profiling import trace
 
     batch_size = int(args.batch_size) if args.batch_size is not None else preset.batch_size
-    dropout = float(args.dropout_rate)
     grad_accum = int(args.gradient_accumulation_steps)
     ckpt_dir = Path(args.checkpoint_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
@@ -268,9 +265,6 @@ def _train(argv: Optional[List[str]]) -> int:
             print(f"device_cache auto: split needs {est / 1e9:.2f} GB a device > budget "
                   f"{args.device_cache_budget_gb} GB; streaming from host")
 
-    model = zoo.build(preset.model, dropout_rate=dropout,
-                      linear_layer_size=preset.linear_layer_size,
-                      filter_sizes=preset.filter_sizes, seed=args.seed)
     compute_dtype = None if args.precision == "float32" else args.precision
     local_rows = None
     if args.data_parallel:

@@ -295,20 +295,11 @@ class ShardedPipeline(LaughterPipeline):
                 ]))
         return out
 
-    def bucket_batch_body(self, waves: Sequence[torch.Tensor], valid) -> torch.Tensor:
-        """Each local shard's float32 waves on its device (its rows of a
-        bucket batch, as :meth:`shard_rows` splits it) and every row's
-        valid frames -> [C, n_chunks * chunk] probabilities on the first
-        device: the batch body of :meth:`_bucket_probs_batch`, as
-        ``LaughterPipeline.bucket_body`` is the single channel's."""
-        return self._gather(self._shard_bodies(waves, valid))
-
     def fused_batch_body(self, bufs: Sequence, valid: Sequence[int]) -> torch.Tensor:
         """mode='fused_conv': each local shard's whole-track buffers (host
-        arrays, or tensors on its device, as :meth:`shard_rows` stages
-        them) and every row's frame count -> [rows, total] probabilities
-        on the first device, each shard through ``fused_conv_probs`` on
-        its own device."""
+        arrays, or tensors on its device) and every row's frame count ->
+        [rows, total] probabilities on the first device, each shard
+        through ``fused_conv_probs`` on its own device."""
         split = self._split(len(valid))
         with annotate("sweep/body"):
             pieces = [
@@ -317,14 +308,6 @@ class ShardedPipeline(LaughterPipeline):
                 for model, dev, buf, (r0, r1) in zip(self.shard_models, self.devices, bufs, split)
             ]
         return self._gather(pieces)
-
-    def shard_rows(self, batch: np.ndarray) -> List[torch.Tensor]:
-        """Each local shard's rows of a host batch of this process's rows,
-        on its device as they are (int16 stays int16): what a caller
-        stages ahead of :meth:`bucket_batch_body` or
-        :meth:`fused_batch_body`."""
-        return [torch.from_numpy(np.ascontiguousarray(batch[a:b])).to(d)
-                for d, (a, b) in zip(self.devices, self._split(len(batch)))]
 
     def probs_for_meeting(
         self, audio_paths: Sequence[str], channel: int = 0

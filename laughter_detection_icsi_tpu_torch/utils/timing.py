@@ -2,8 +2,7 @@
 CUDA-event kernel times and a profiler breakdown by kernel kind.
 
 The port of the JAX package's ``utils/timing.py``, plus the measurement
-helpers that ``chip_smoke.py`` and the bench (``bench.py`` in this package)
-share:
+helpers that ``chip_smoke.py`` uses:
 
 - ``checksum(*trees)``  — one float32 scalar, on the device of the first
                           tensor, that depends on every tensor in the

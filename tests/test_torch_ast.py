@@ -251,12 +251,15 @@ def test_settings_and_paths_that_refuse_clips():
 
 
 def test_train_and_export_clis_refuse_ast(capsys, tmp_path):
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit) as e:
         train_cli.main(["--config", "ast_audioset", "--checkpoint_dir", str(tmp_path / "ck"),
                         "--data_root", str(tmp_path),
                         "--device", "cpu"])
-    assert "does not train AST (architecture 'AST')" in capsys.readouterr().err
-    with pytest.raises(SystemExit, match="AST is not exported"):
+    assert e.value.code == 2
+    assert ("--config ast_audioset: cli/train runs mode 'windows', and this preset (AST) "
+            "runs in mode 'clips'") in capsys.readouterr().err
+    with pytest.raises(SystemExit, match=r"cli/export_model runs mode 'windows', and this "
+                                         r"preset \(AST\) runs in mode 'clips'"):
         export_model.main(["--config", "ast_audioset", "--random_init", "--out",
                            str(tmp_path / "x.pt2"), "--device", "cpu"])
 

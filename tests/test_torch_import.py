@@ -62,7 +62,7 @@ def test_port_never_imports_jax():
                 "data.dataset", "data.feature_cache", "data.sampler", "cli.create_data_df",
                 "cli.compute_features", "cli.train", "export", "cli.export_model",
                 "cli.convert_checkpoint", "parallel.mesh", "parallel.distributed",
-                "parallel.data_parallel", "utils.timing", "bench", "cli.parity",
+                "parallel.data_parallel", "utils.timing", "cli.presets", "cli.parity",
                 "cli.laughs_to_wav", "cli.probe_audio_loading", "cli.visualise", "viz"):
         assert f"laughter_detection_icsi_tpu_torch.{mod}" in names, mod
     # Every CLI's --help ran: segment_laughter's, serve's, sweep's, analyse's,
@@ -102,7 +102,7 @@ def test_sources_name_no_jax_import():
                  "cli/create_data_df.py", "cli/compute_features.py", "cli/train.py",
                  "export.py", "cli/export_model.py", "cli/convert_checkpoint.py",
                  "parallel/mesh.py", "parallel/distributed.py", "parallel/data_parallel.py",
-                 "utils/timing.py", "bench.py", "cli/parity.py", "cli/laughs_to_wav.py",
+                 "utils/timing.py", "cli/presets.py", "cli/parity.py", "cli/laughs_to_wav.py",
                  "cli/probe_audio_loading.py", "cli/visualise.py", "viz.py"):
         assert PORT / name in files, name
     for example in ("demo_torch.py", "streaming_demo_torch.py"):

@@ -24,6 +24,7 @@ import pytest
 from laughter_detection_icsi_tpu_torch import inference
 from laughter_detection_icsi_tpu_torch.cli import parity
 from laughter_detection_icsi_tpu_torch.cli import sweep as sweep_cli
+from laughter_detection_icsi_tpu_torch.config import MODEL_MAP
 from laughter_detection_icsi_tpu_torch.data import audio as audio_io
 from laughter_detection_icsi_tpu_torch.data.feature_cache import compute_track_features
 from laughter_detection_icsi_tpu_torch.eval import textgrid as tg
@@ -193,8 +194,6 @@ def test_write_goldens_rejects_wrong_sample_rate(tmp_path):
 
 
 def test_rejects_unknown_config_colliding_stems_and_a_missing_card(inputs, monkeypatch, tmp_path):
-    with pytest.raises(SystemExit, match="unknown preset 'resnet_bsae'"):
-        parity.main(inputs.argv(GOLDENS) + CPU + ["--config", "resnet_bsae"])
     twin = tmp_path / "audio" / "M"
     twin.mkdir(parents=True)
     audio_io.write_wav(str(twin / "chan0.wav"), np.zeros(160, np.float32), 16000)
@@ -213,13 +212,15 @@ def test_parity_is_float32_on_the_card(monkeypatch, tmp_path):
     from float32 goldens)."""
     assert inference.settings_from_flags(device="cuda").precision == "bfloat16"
     monkeypatch.setattr(inference, "LaughterPipeline",
-                        lambda model, settings, device: SimpleNamespace(settings=settings,
-                                                                        device=device))
+                        lambda model, feat_cfg, settings, device: SimpleNamespace(
+                            feat_cfg=feat_cfg, settings=settings, device=device))
     args = parity.build_parser().parse_args(
         ["--goldens", "g", "--audio_dir", "a", "--model_path", "m", "--transcript_dir", "t"])
     assert args.device == "cuda"
-    pipe = parity._pipeline(args, model=None)
+    preset = MODEL_MAP[args.config]
+    pipe = parity._pipeline(args, preset, model=None)
     assert pipe.settings.precision == "float32" and pipe.device == "cuda"
+    assert pipe.feat_cfg is preset.feat
     assert pipe.settings.bucket_frames == 6144  # the card's defaults
 
     seen = []

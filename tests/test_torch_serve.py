@@ -155,15 +155,12 @@ def test_flag_guards():
         (["--bucket_frames", "0"], "--bucket_frames must be >= 1"),
         (["--chunk", "-4"], "--chunk must be >= 1"),
         (["--input", "x.wav", "--channels", "2"], "file replay analyzes ONE channel"),
-        (["--config", "nope", "--device", "cpu"], "unknown preset"),
     ):
         with pytest.raises(SystemExit, match=msg):
             serve.main(["--model_path", "/nonexistent", *argv])
     # bf16 is ported: the flag passes and the missing checkpoint stops the run.
     with pytest.raises(SystemExit, match="not found"):
         serve.main(["--model_path", "/nonexistent", "--precision", "bfloat16", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not found"):
-        serve.main(["--model_path", "/nonexistent", "--device", "cpu"])
 
 
 def test_broken_pipe_exits_141(tmp_path, monkeypatch):
