@@ -33,8 +33,11 @@ Phases (any failure exits non-zero and prints no result):
    (ops/bn_act_cuda.py) at the sweep's band and tail shapes: in bf16 bit
    for bit the eager chain it replaces, its time beside that chain's and
    its byte bound, in NCHW and in NHWC (channels-last: the bf16 classify
-   step's layout); in float32 ``layers.conv_bn_act`` (the bias in the
-   library's conv) bit for bit the composed chain;
+   step's layout); at the band shape in NHWC also its padded form (a zero
+   row above the result, the next band conv's input, in the same launch)
+   bit for bit ``F.pad`` of the unpadded form, timed beside the unpadded
+   kernel followed by ``F.pad``; in float32 ``layers.conv_bn_act`` (the
+   bias in the library's conv) bit for bit the composed chain;
 4. main path — full-width ``resnet_base`` ResNetBigger (numpy-seeded
    weights in a ``.ckpt.npz``) segments ~150 s of synthetic int16 audio
    through the port's CLI on ``cuda``; the kernel must launch once per
@@ -234,7 +237,9 @@ Phases (any failure exits non-zero and prints no result):
    train steps of phases 9 and 12, and phase 16's parity run), then the
    result line.  Each path's epilogue launches must equal the convs its
    classify steps run (``convs_per_bucket``): 0 on fused_conv and in a
-   train step.
+   train step; those that write zero rows around their result
+   (``launches_padded``) the band convs whose result the next band conv
+   reads (``padded_per_bucket``).
 
 ``python3 chip_smoke.py --through 7`` runs phases 1-7 alone and prints
 no result line: phase 7 (b) on a host of several cards, where phases 8
@@ -325,18 +330,38 @@ def convs_per_bucket(model, settings, shared: bool) -> int:
     return track + n_chunks * (2 * track + convs(stages[k:]))
 
 
+def padded_per_bucket(model, settings, shared: bool) -> int:
+    """Of ``convs_per_bucket``'s launches, those that write their result
+    with a zero row beside it: in each chunk of the shared stem, at both
+    window edges, every band conv whose result the next band conv reads
+    (stage 1's band: the stem conv and each block's two convs but the
+    last; stage 2's, where ``supports_track2``: each block's two but the
+    last).  None elsewhere."""
+    from laughter_detection_icsi_tpu_torch.models import shared_stem
+
+    if not shared:
+        return 0
+    stages = model.stages()
+    band = 2 * len(stages[0])
+    if shared_stem.supports_track2(settings.window):
+        band += 2 * len(stages[1]) - 1
+    return -(-settings.bucket_frames // settings.chunk) * 2 * band
+
+
 class EpilogueCount:
     """The conv epilogue's launches (``ops/bn_act_cuda.launches``) over one
     path's run, held against the launches the run owes: ``with
-    EPILOGUES.count(path):`` zeroes the counter and, while it lasts, adds
-    ``convs_per_bucket`` for each classify step (``classify_bucket``, as
-    inference and the sharded pipeline call it).  On leaving it checks the
-    two are equal, and that the NHWC form took a bf16 path's launches and
-    no other's, and keeps the count under ``path``.  A path with no
-    classify step (fused_conv, a train step) owes 0."""
+    EPILOGUES.count(path):`` zeroes the counters and, while it lasts, adds
+    ``convs_per_bucket`` (and ``padded_per_bucket``) for each classify step
+    (``classify_bucket``, as inference and the sharded pipeline call it).
+    On leaving it checks the two are equal, that the NHWC form took a bf16
+    path's launches and no other's, and that the padded launches are those
+    owed, and keeps the count under ``path``.  A path with no classify step
+    (fused_conv, a train step) owes 0."""
 
     def __init__(self):
         self.by_path = {}
+        self.padded_by_path = {}
 
     def count(self, path: str):
         import contextlib
@@ -347,37 +372,45 @@ class EpilogueCount:
 
         @contextlib.contextmanager
         def counting():
-            owed = [0]
+            owed = [0, 0]
             real = inference.classify_bucket
 
             def counted(model, feats, valid, settings, use_shared_stem):
                 owed[0] += convs_per_bucket(model, settings, use_shared_stem)
+                owed[1] += padded_per_bucket(model, settings, use_shared_stem)
                 return real(model, feats, valid, settings, use_shared_stem)
 
             mods = (inference, sharded_inference)
             saved = [m.classify_bucket for m in mods]
             for m in mods:
                 m.classify_bucket = counted
-            bn_act_cuda.launches = bn_act_cuda.launches_nhwc = 0
+            bn_act_cuda.launches = bn_act_cuda.launches_nhwc = bn_act_cuda.launches_padded = 0
             try:
                 yield
             finally:
                 for m, f in zip(mods, saved):
                     m.classify_bucket = f
-            self.check(path, bn_act_cuda.launches, owed[0], bn_act_cuda.launches_nhwc)
+            self.check(path, bn_act_cuda.launches, owed[0], bn_act_cuda.launches_nhwc,
+                       (bn_act_cuda.launches_padded, owed[1]))
 
         return counting()
 
-    def check(self, path: str, launches: int, owed: int, nhwc=None) -> None:
+    def check(self, path: str, launches: int, owed: int, nhwc=None, padded=None) -> None:
         """Also, where ``nhwc`` (the launches of the NHWC form) is given:
         a bf16 path's launches (``_bf16``: a bf16 pipeline on the card) are
-        all NHWC, any other path's none."""
+        all NHWC, any other path's none; where ``padded`` (the launches
+        that wrote zero rows, those owed) is given, the two are equal."""
         check(launches == owed, f"{path}: {launches} conv epilogue launches where its classify "
                                 f"steps owe {owed}")
         if nhwc is not None:
             want = launches if path.endswith("_bf16") else 0
             check(nhwc == want, f"{path}: {nhwc} of its {launches} conv epilogue launches in "
                                 f"NHWC where its precision owes {want}")
+        if padded is not None:
+            check(padded[0] == padded[1], f"{path}: {padded[0]} of its {launches} conv epilogue "
+                                          f"launches wrote zero rows where its band convs owe "
+                                          f"{padded[1]}")
+            self.padded_by_path[path] = padded[0]
         self.by_path[path] = launches
 
 
@@ -709,6 +742,7 @@ def phase_epilogue(card, peak) -> dict:
     phases 4-10 and 16 run: ``layers.conv_bn_act`` (the library's conv
     adds the bias, the kernel the rest) bit for bit the composed chain."""
     import torch
+    import torch.nn.functional as F
 
     from laughter_detection_icsi_tpu_torch import inference
     from laughter_detection_icsi_tpu_torch.models import layers as L
@@ -759,6 +793,29 @@ def phase_epilogue(card, peak) -> dict:
         print(f"  NHWC at the {where} shape, {layout} residual: bit-equal to the eager chain; "
               f"kernel {nhwc_ms:.4f} ms ({100 * bound_ms / nhwc_ms:.1f}% of the byte bound)")
         times[where] = dict(ms=kernel_ms, plain_ms=chain_ms, bound_ms=bound_ms, nhwc_ms=nhwc_ms)
+        if layout == "strided":
+            # The band's padded form: the result with the zero row above it
+            # that the next band conv reads, against the unpadded kernel
+            # followed by F.pad (the route it replaces).
+            padded = lambda: torch.ops.laughter_icsi_torch.bn_act(y, bias, *norm, res, True,
+                                                                  L.BN_EPS, 1, 0)
+            pad_route = lambda: F.pad(kernel(), (0, 0, 1, 0))
+            before = bn_act_cuda.launches_padded
+            with torch.inference_mode():
+                got, want = padded(), pad_route()
+                check(bn_act_cuda.launches_padded - before == 1
+                      and got.is_contiguous(memory_format=cl)
+                      and torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                      f"the padded NHWC epilogue differs from F.pad of the unpadded one at the "
+                      f"{where} shape")
+                padded_ms, pad_route_ms = cuda_ms(padded), cuda_ms(pad_route)
+            padded_bound_ms = 1e3 * (2 * h + h + 1) * n * c * w * y.element_size() / peak["bytes"]
+            print(f"  NHWC padded at the {where} shape (a zero row above, {h + 1} rows out): "
+                  f"bit-equal to F.pad of the unpadded kernel; kernel {padded_ms:.4f} ms "
+                  f"({100 * padded_bound_ms / padded_ms:.1f}% of its byte bound "
+                  f"{padded_bound_ms:.4f} ms) | unpadded kernel + F.pad {pad_route_ms:.4f} ms")
+            times[where].update(padded_ms=padded_ms, padded_bound_ms=padded_bound_ms,
+                                pad_route_ms=pad_route_ms)
         del y, res, got, want
 
         # float32 through conv_bn_act: a band's conv pads F alone (two rows
@@ -2746,9 +2803,10 @@ pcm = np.load(wav_npy)
 geo = host_prep.BucketGeometry(bucket_frames=bucket)
 buckets = list(host_prep.bucket_inputs(pcm, settings=geo))
 from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda  # export imported it
-export.fbank_cuda.launches = bn_act_cuda.launches = 0
+export.fbank_cuda.launches = bn_act_cuda.launches = bn_act_cuda.launches_padded = 0
 probs = torch.cat([art.call(buf, valid)[:n] for buf, valid, n in buckets]).cpu().numpy()
 launches, epilogues = export.fbank_cuda.launches, bn_act_cuda.launches
+padded = bn_act_cuda.launches_padded
 np.save(out_npy, probs)
 bufs = [(torch.from_numpy(b).cuda(), torch.tensor(v, device="cuda")) for b, v, _ in buckets]
 for b, v in bufs:
@@ -2762,7 +2820,8 @@ for _ in range(3):
     torch.cuda.synchronize()
     per.append(1e3 * (time.perf_counter() - t0) / len(bufs))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "pandas", "lxml"))
-print(json.dumps({"launches": launches, "epilogues": epilogues, "buckets": len(buckets),
+print(json.dumps({"launches": launches, "epilogues": epilogues, "padded": padded,
+                  "buckets": len(buckets),
                   "ms_per_bucket": per,
                   "precision": art.precision, "device": str(art.device), "forbidden": loaded}))
 """
@@ -2831,7 +2890,9 @@ def phase_export(card, work: Path, ctx: dict) -> int:
     pipe = inference.LaughterPipeline(model, device="cuda", settings=inference.InferenceSettings(
         chunk=6144, bucket_frames=6144))  # the artifact's settings, float32
     EPILOGUES.check("e2e_artifact", res["epilogues"],
-                    n_buckets * convs_per_bucket(model, pipe.settings, pipe.shared_stem))
+                    n_buckets * convs_per_bucket(model, pipe.settings, pipe.shared_stem),
+                    padded=(res["padded"], n_buckets * padded_per_bucket(
+                        model, pipe.settings, pipe.shared_stem)))
     want = pipe.probs_for_waveform(ctx["pcm"])
     d_e2e = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
     check(d_e2e <= 1e-6, f"e2e artifact vs LaughterPipeline: {d_e2e:.3e} > 1e-6")
@@ -3777,8 +3838,11 @@ def main(through: int = 17) -> int:
     by_path = EPILOGUES.by_path
     print("conv epilogue launches per path (each the convs its classify steps run): "
           + ", ".join(f"{k} {v}" for k, v in by_path.items()))
+    print("of them padded (each the band convs whose result the next band conv reads): "
+          + ", ".join(f"{k} {v}" for k, v in EPILOGUES.padded_by_path.items()))
     epilogue = {**{k: epilogue.pop(k) for k in ("name", "route", "source", "replaces")},
-                "launches": by_path["sweep_bf16"], **epilogue, "launches_by_path": by_path}
+                "launches": by_path["sweep_bf16"], **epilogue, "launches_by_path": by_path,
+                "padded_by_path": EPILOGUES.padded_by_path}
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [entry, epilogue]}))

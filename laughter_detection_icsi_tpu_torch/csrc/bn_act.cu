@@ -48,6 +48,19 @@
 // ATen's clamp_min(0): NaN passes, anything else is fmaxf(v, 0).  The
 // layout changes none of this.  The output is a new tensor: y is left as
 // it is.
+//
+// Zero rows above and below (pad_top, pad_bottom): the output is then
+// [n, c, top + h + bottom, w] in y's layout, y's result in its interior
+// and zeros in its pad rows, all written by this one launch, so that the
+// next conv, which pads its input in time on one side (the shared stem's
+// window-edge bands), reads the buffer as it is: no separate fill of the
+// padded tensor and no copy of y's result into its interior.  A pad row is
+// a whole row of each plane (NCHW) or of each image (NHWC: w * c elements),
+// so an element's place in the output is its place in y moved down by
+// (unit * (top + bottom) + top) rows, unit its plane or image.  The blocks
+// past y's write the pad rows' zeros (+0.0, as a constant pad writes).
+// Where a row is a whole number of 16-byte vectors the stores stay 16
+// bytes wide; elsewhere they are scalar.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -100,10 +113,14 @@ __device__ __forceinline__ unsigned swizzle(unsigned t) { return t ^ ((t >> 3) &
 
 }  // namespace
 
-// y and out dense [n, c, h, w] in NCHW or NHWC memory order (`nhwc`);
-// total = n*c*h*w < 2^31.  The residual has y's shape at element strides
-// rs (in [n, c, h, w] order), read as `res_mode` says.  bias, weight,
-// shift, mean and var are [c].
+// y dense [n, c, h, w] in NCHW or NHWC memory order (`nhwc`); total =
+// n*c*h*w < 2^31.  out is y's shape, or with pad_rows = top + bottom > 0
+// [n, c, top + h + bottom, w] in the same order, fewer than 2^31 elements:
+// a unit (an NCHW plane or an NHWC image) of y is `unit` elements, a row
+// `row` (w, or w * c), and the out's pad rows hold `zeros` elements, which
+// the blocks from `y_blocks` on write.  The residual has y's shape at
+// element strides rs (in [n, c, h, w] order), read as `res_mode` says.
+// bias, weight, shift, mean and var are [c].
 template <typename T>
 struct BnActArgs {
   const T* y;
@@ -118,7 +135,39 @@ struct BnActArgs {
   unsigned total, c, h, w, hw;
   int flags, res_mode;
   float eps;
+  unsigned top, pad_rows, row, unit, zeros, y_blocks;
+  bool pad_wide;  // every row a whole number of VEC-element vectors
 };
+
+// Where y's element e lies in the padded output.
+template <typename T>
+__device__ __forceinline__ unsigned padded_index(const BnActArgs<T>& a, unsigned e) {
+  return e + (e / a.unit * a.pad_rows + a.top) * a.row;
+}
+
+// A block past y's: VEC of the pad rows' zeros a thread, the z-th zero
+// lying in unit z / (pad_rows * row), above the unit's rows of y while
+// within its first top * row zeros, below them after.
+template <typename T, int VEC>
+__device__ __forceinline__ void zero_rows(const BnActArgs<T>& a) {
+  const unsigned z = (blockIdx.x - a.y_blocks) * (kThreads * VEC) + threadIdx.x * VEC;
+  if (z >= a.zeros) return;
+  const unsigned per_unit = a.pad_rows * a.row;
+  const auto at = [&a, per_unit](unsigned q) {
+    const unsigned u = q / per_unit, k = q - u * per_unit;
+    return u * (a.unit + per_unit) + (k < a.top * a.row ? k : k + a.unit);
+  };
+  if (a.pad_wide && z + VEC <= a.zeros) {
+    Pack<T, VEC> o;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) o.v[k] = Num<T>::put(0.0f);
+    *reinterpret_cast<Pack<T, VEC>*>(a.out + at(z)) = o;
+  } else {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      if (z + k < a.zeros) a.out[at(z + k)] = Num<T>::put(0.0f);
+  }
+}
 
 template <typename T>
 __device__ __forceinline__ Terms channel_terms(const BnActArgs<T>& a, unsigned c) {
@@ -155,11 +204,18 @@ __device__ __forceinline__ void fill_terms(const BnActArgs<T>& a, Terms* terms, 
   }
 }
 
-// One thread's VEC elements, in y's memory order.
-template <typename T, int VEC, bool NHWC>
+// One thread's VEC elements, in y's memory order; with PAD, the blocks
+// past y's write the output's pad rows instead.
+template <typename T, int VEC, bool NHWC, bool PAD>
 __device__ __forceinline__ void bn_act(const BnActArgs<T>& a) {
   extern __shared__ Terms terms[];
   using N = Num<T>;
+  if constexpr (PAD) {
+    if (blockIdx.x >= a.y_blocks) {  // the whole block: before any barrier
+      zero_rows<T, VEC>(a);
+      return;
+    }
+  }
   const unsigned first = blockIdx.x * (kThreads * VEC);
   const unsigned last = min(first + kThreads * VEC, a.total) - 1;
   const unsigned e = first + threadIdx.x * VEC;
@@ -264,7 +320,15 @@ __device__ __forceinline__ void bn_act(const BnActArgs<T>& a) {
       if (++off == a.hw) { off = 0; ++t; }
     }
   }
-  if (full) {
+  if constexpr (PAD) {
+    if (full && a.pad_wide) {
+      *reinterpret_cast<Pack<T, VEC>*>(a.out + padded_index(a, e)) = o;
+    } else {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        if (e + k < a.total) a.out[padded_index(a, e + k)] = o.v[k];
+    }
+  } else if (full) {
     *reinterpret_cast<Pack<T, VEC>*>(a.out + e) = o;
   } else {
 #pragma unroll
@@ -273,32 +337,43 @@ __device__ __forceinline__ void bn_act(const BnActArgs<T>& a) {
   }
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool PAD>
 __global__ void __launch_bounds__(kThreads) bn_act_kernel(const BnActArgs<T> a) {
-  bn_act<T, VEC, false>(a);
+  bn_act<T, VEC, false, PAD>(a);
 }
 
-template <typename T, int VEC>
+template <typename T, int VEC, bool PAD>
 __global__ void __launch_bounds__(kThreads) bn_act_nhwc_kernel(const BnActArgs<T> a) {
-  bn_act<T, VEC, true>(a);
+  bn_act<T, VEC, true, PAD>(a);
 }
 
 namespace {
 
-template <typename T, int VEC>
-int launch(const BnActArgs<T>& a, bool nhwc, cudaStream_t stream) {
+template <typename T, int VEC, bool PAD>
+void launch_form(const BnActArgs<T>& a, bool nhwc, unsigned blocks, cudaStream_t stream) {
   constexpr unsigned per_block = kThreads * VEC;
-  const unsigned blocks = (a.total + per_block - 1) / per_block;
   if (nhwc) {
     // Up to min(c, per_block) entries, rounded up to whole groups of 8 for
     // the swizzle: at most 2,048 entries, 32 KB.
     const unsigned entries = ((a.c < per_block ? a.c : per_block) + 7) / 8 * 8;
-    bn_act_nhwc_kernel<T, VEC><<<blocks, kThreads, sizeof(Terms) * entries, stream>>>(a);
+    bn_act_nhwc_kernel<T, VEC, PAD><<<blocks, kThreads, sizeof(Terms) * entries, stream>>>(a);
   } else {
     // A block's elements span at most this many planes.
     const size_t smem = sizeof(Terms) * ((per_block + a.hw - 1) / a.hw + 1);
-    bn_act_kernel<T, VEC><<<blocks, kThreads, smem, stream>>>(a);
+    bn_act_kernel<T, VEC, PAD><<<blocks, kThreads, smem, stream>>>(a);
   }
+}
+
+template <typename T, int VEC>
+int launch(BnActArgs<T> a, bool nhwc, cudaStream_t stream) {
+  constexpr unsigned per_block = kThreads * VEC;
+  a.y_blocks = (a.total + per_block - 1) / per_block;
+  a.pad_wide = a.row % VEC == 0;
+  if (a.pad_rows == 0)
+    launch_form<T, VEC, false>(a, nhwc, a.y_blocks, stream);
+  else
+    launch_form<T, VEC, true>(a, nhwc, a.y_blocks + (a.zeros + per_block - 1) / per_block,
+                              stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,7 +381,9 @@ template <typename T>
 int dispatch(const void* y, void* out, const void* bias, const void* weight, const void* shift,
              const void* mean, const void* var, const void* res, int n, int c, int h, int w,
              long long rs0, long long rs1, long long rs2, long long rs3, int res_mode, int flags,
-             float eps, int wide, int nhwc, cudaStream_t stream) {
+             float eps, int wide, int nhwc, int top, int bottom, cudaStream_t stream) {
+  const unsigned row = nhwc ? static_cast<unsigned>(w) * c : static_cast<unsigned>(w);
+  const unsigned pad_rows = static_cast<unsigned>(top + bottom);
   BnActArgs<T> a{static_cast<const T*>(y), static_cast<T*>(out),
                  static_cast<const T*>(bias), static_cast<const T*>(weight),
                  static_cast<const T*>(shift), static_cast<const T*>(mean),
@@ -314,7 +391,10 @@ int dispatch(const void* y, void* out, const void* bias, const void* weight, con
                  rs0, rs1, rs2, rs3,
                  static_cast<unsigned>(n) * c * h * w, static_cast<unsigned>(c),
                  static_cast<unsigned>(h), static_cast<unsigned>(w),
-                 static_cast<unsigned>(h) * w, flags, res_mode, eps};
+                 static_cast<unsigned>(h) * w, flags, res_mode, eps,
+                 static_cast<unsigned>(top), pad_rows, row, static_cast<unsigned>(h) * row,
+                 (nhwc ? static_cast<unsigned>(n) : static_cast<unsigned>(n) * c) * pad_rows * row,
+                 0u, false};
   constexpr int kWide = 16 / sizeof(T);
   return wide ? launch<T, kWide>(a, nhwc, stream) : launch<T, 1>(a, nhwc, stream);
 }
@@ -322,9 +402,11 @@ int dispatch(const void* y, void* out, const void* bias, const void* weight, con
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// dtype 0 = float32, 1 = bfloat16.  y and out dense [n, c, h, w], NCHW in
-// memory or, with `nhwc`, NHWC; n*c*h*w in [1, 2^31); `wide` = y and out
-// are 16-byte aligned (16-byte loads and stores).  The residual is read at
+// dtype 0 = float32, 1 = bfloat16.  y dense [n, c, h, w], NCHW in memory
+// or, with `nhwc`, NHWC; n*c*h*w in [1, 2^31); out dense [n, c, top + h +
+// bottom, w] in y's order, fewer than 2^31 elements, its top and bottom
+// rows zeros (top, bottom >= 0); `wide` = y and out are 16-byte aligned
+// (16-byte loads and stores).  The residual is read at
 // its strides rs0..rs3 as `res_mode` says: 0 one element at a time, 1 laid
 // out as y and 16-byte aligned, 2 (nhwc, wide) channel stride 1, the other
 // strides multiples of 16 bytes' elements, a 16-byte aligned base and c a
@@ -334,16 +416,17 @@ extern "C" int bn_act_launch(int dtype, const void* y, void* out, const void* bi
                              const void* weight, const void* shift, const void* mean,
                              const void* var, const void* res, int n, int c, int h, int w,
                              long long rs0, long long rs1, long long rs2, long long rs3,
-                             int res_mode, int flags, float eps, int wide, int nhwc,
-                             void* stream) {
+                             int res_mode, int flags, float eps, int wide, int nhwc, int top,
+                             int bottom, void* stream) {
   const long long total = static_cast<long long>(n) * c * h * w;
   if (n < 1 || c < 1 || h < 1 || w < 1 || total >= (1LL << 31) || (dtype != 0 && dtype != 1)
-      || res_mode < 0 || res_mode > 2 || (res_mode == 2 && !(nhwc && wide)))
+      || res_mode < 0 || res_mode > 2 || (res_mode == 2 && !(nhwc && wide)) || top < 0
+      || bottom < 0 || static_cast<long long>(n) * c * (h + top + bottom) * w >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 1
       ? dispatch<__nv_bfloat16>(y, out, bias, weight, shift, mean, var, res, n, c, h, w, rs0,
-                                rs1, rs2, rs3, res_mode, flags, eps, wide, nhwc, s)
+                                rs1, rs2, rs3, res_mode, flags, eps, wide, nhwc, top, bottom, s)
       : dispatch<float>(y, out, bias, weight, shift, mean, var, res, n, c, h, w, rs0, rs1, rs2,
-                        rs3, res_mode, flags, eps, wide, nhwc, s);
+                        rs3, res_mode, flags, eps, wide, nhwc, top, bottom, s);
 }

@@ -74,22 +74,26 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
 def conv_bn_act(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.Module],
                 train: bool = False, relu: bool = True,
                 residual: Optional[torch.Tensor] = None, stride: Pair = 1,
-                padding: Pair = 1, dilation: Pair = 1) -> torch.Tensor:
+                padding: Pair = 1, dilation: Pair = 1,
+                pad_rows: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """``relu(batch_norm(conv2d(x)) + residual)``: a conv of the ResNet
     family and what follows it, the ReLU only where ``relu``, the residual
-    only where given.  A CUDA tensor outside train mode takes one launch of
+    only where given, with ``pad_rows = (top, bottom)`` zero rows added
+    above and below (along H): the input of a conv that pads in time on one
+    side.  A CUDA tensor outside train mode takes one launch of
     the epilogue kernel (ops/bn_act_cuda.py) after the library's conv, in
     the memory format the conv wrote (NHWC where the conv's weight is
-    channels-last); it rounds as the composed chain does, so the two give
-    the same bits.
+    channels-last), the zero rows written by the same launch; it rounds as
+    the composed chain does, so the two give the same bits.
     Anything else (the CPU, train mode's batch statistics) runs the
-    composed chain, the plain version."""
+    composed chain, the plain version, and pads its result with ``F.pad``."""
     kw = dict(stride=stride, padding=padding, dilation=dilation)
     if train or not x.is_cuda:
         y = batch_norm(conv2d(x, conv, **kw), bn, train)
         if residual is not None:
             y = y + residual
-        return torch.relu(y) if relu else y
+        y = torch.relu(y) if relu else y
+        return F.pad(y, (0, 0, *pad_rows)) if any(pad_rows) else y
     # conv_bias's split: the library adds a float32 bias in its accumulator;
     # below float32 the kernel adds it to the rounded product.
     f32 = x.dtype == torch.float32
@@ -97,7 +101,7 @@ def conv_bn_act(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.Module],
     norm = ((None,) * 4 if bn is None
             else (bn.weight, bn.bias, bn.running_mean, bn.running_var))
     return torch.ops.laughter_icsi_torch.bn_act(
-        y, None if f32 else conv.bias, *norm, residual, relu, BN_EPS)
+        y, None if f32 else conv.bias, *norm, residual, relu, BN_EPS, *pad_rows)
 
 
 def _rsqrt(v: torch.Tensor) -> torch.Tensor:

@@ -25,9 +25,12 @@ with channels-last weights (the bf16 classify step on the card,
 ``inference.channels_last_classify``) cuDNN writes every conv's output
 NHWC, a track is the [T, C, F] view of [T, F, C] memory, and the gathers,
 pads and splices here keep NHWC, so no conv transposes its input or output
-and nothing is copied to change layout.  BatchNorm is the eval expression
-of models/layers.py on every path, so the shared and naive computations
-round alike.  Valid for ResNetBigger / ResNet / ResNetNoBN (stage-1 stride
+and nothing is copied to change layout.  The band convs pad in time on the
+window-edge side only; each band conv's epilogue writes its result with
+the zero row the next band conv reads (``L.conv_bn_act``'s ``pad_rows``),
+so no band activation is padded by a pass of its own.  BatchNorm is the
+eval expression of models/layers.py on every path, so the shared and naive
+computations round alike.  Valid for ResNetBigger / ResNet / ResNetNoBN (stage-1 stride
 1, 3x3 'same' convs).
 """
 
@@ -78,10 +81,18 @@ def supports_track2(window: int) -> bool:
     return window % 2 == 0 and window // 2 > 2 * DEPTH2
 
 
-def _conv_rows(x: torch.Tensor, conv, bn, pad: Tuple[int, int], **kw) -> torch.Tensor:
-    """3x3 conv with one-sided time padding (full 'same' padding in F),
-    then ``L.conv_bn_act``'s BN, residual and ReLU (``kw``)."""
-    return L.conv_bn_act(F.pad(x, (0, 0, pad[0], pad[1])), conv, bn, padding=(0, 1), **kw)
+def _conv_rows(xp: torch.Tensor, conv, bn, pad_out: Tuple[int, int] = (0, 0),
+               **kw) -> torch.Tensor:
+    """3x3 conv of a band ``xp`` that already holds its one-sided time
+    padding (the zero row on the window-edge side), with 'same' padding in
+    F; then ``L.conv_bn_act``'s BN, residual and ReLU (``kw``), its result
+    with ``pad_out`` zero rows around it for the next such conv."""
+    return L.conv_bn_act(xp, conv, bn, padding=(0, 1), pad_rows=pad_out, **kw)
+
+
+def _interior(vp: torch.Tensor, pad: Tuple[int, int]) -> torch.Tensor:
+    """The rows of a band padded by ``pad`` without its zero rows: a view."""
+    return vp[:, :, pad[0]: vp.shape[2] - pad[1]]
 
 
 def _conv_dil(x: torch.Tensor, conv, bn, **kw) -> torch.Tensor:
@@ -111,23 +122,28 @@ def _band_stem(model: ResNetFamily, x: torch.Tensor, top: bool) -> torch.Tensor:
     x: [B, 1, 2*DEPTH, F], the first (``top``) or last 2*DEPTH feature rows
     of each window.  Each conv zero-pads only the window-edge side and stays
     'valid' on the interior side, so heights telescope 2*DEPTH -> DEPTH and
-    every surviving row is the window's own computation.  Returns
+    every surviving row is the window's own computation.  Each conv but the
+    last writes its result with the zero row the next one reads.  Returns
     [B, C, DEPTH, F]."""
     pad = (1, 0) if top else (0, 1)
 
-    def crop(v, n):
-        # Align a residual input of height h with an output of height h - n
-        # (rows are edge-aligned: drop n rows from the interior side).
+    def crop(vp, n):
+        # Align a residual input (a padded band's rows, height h) with an
+        # output of height h - n (rows are edge-aligned: drop n rows from
+        # the interior side).  A view of the band.
+        v = _interior(vp, pad)
         return v[:, :, : v.shape[2] - n] if top else v[:, :, n:]
 
-    x = _conv_rows(x, model.conv1, model.bn1, pad)
-    for blk in model.block1:
-        out = _conv_rows(x, blk.conv1, blk.bn1, pad)
-        sc = crop(x, 2)
+    # The 1-channel feature rows are the one input padded by a pass of its own.
+    xp = _conv_rows(F.pad(x, (0, 0, *pad)), model.conv1, model.bn1, pad)
+    for i, blk in enumerate(model.block1):
+        out = _conv_rows(xp, blk.conv1, blk.bn1, pad)
+        sc = crop(xp, 2)
         if blk.shortcut is not None:
             sc = L.conv_bn_act(sc, blk.shortcut[0], blk.shortcut_bn(), relu=False, padding=0)
-        x = _conv_rows(out, blk.conv2, blk.bn2, pad, residual=sc)
-    return x
+        last = i == len(model.block1) - 1
+        xp = _conv_rows(out, blk.conv2, blk.bn2, (0, 0) if last else pad, residual=sc)
+    return xp
 
 
 def stem_track2(model: ResNetFamily, track1: torch.Tensor) -> torch.Tensor:
@@ -158,25 +174,29 @@ def _band2(model: ResNetFamily, band1: torch.Tensor, strip: torch.Tensor,
     interior stage-1 rows gathered from the track, [B, S, C1, F] (S =
     2*DEPTH2 + 1 for the top edge, 2*DEPTH2 + 2 for the bottom).  Heights
     telescope 18 -> 9 -> 8 -> 7 -> 6 (top; bottom 19 -> 9 -> ...), every
-    conv padding only the window-edge side.  Returns [B, C2, DEPTH2, F//2]."""
+    conv padding only the window-edge side; each conv but the last writes
+    its result with the zero row the next one reads.  Returns [B, C2,
+    DEPTH2, F//2]."""
     b0, b1 = model.block2
     strip = strip.permute(0, 2, 1, 3)  # [B, C1, S, F]: NHWC from an NHWC track
     x = torch.cat([band1, strip] if top else [strip, band1], dim=2)  # [B, C1, H, F]
 
     pad = (1, 0) if top else (0, 1)
-    t0pad = (1, 0) if top else (0, 0)  # bottom centers touch no zero pad
-    out = L.conv_bn_act(F.pad(x, (0, 0, *t0pad)), b0.conv1, b0.bn1, stride=2,
-                        padding=(0, 1))  # rows: 9
+    # The top edge's stride-2 centers read the zero row above the window;
+    # the bottom's touch no zero pad.
+    out = L.conv_bn_act(F.pad(x, (0, 0, 1, 0)) if top else x, b0.conv1, b0.bn1, stride=2,
+                        padding=(0, 1), pad_rows=pad)  # rows: 9, and the zero row
     # Stride-2 1x1 shortcut: even window rows only — local rows 0, 2, ..
     # for the top edge; the bottom edge's even rows start at local row 3.
     sc = L.conv_bn_act(x if top else x[:, :, 3:], b0.shortcut[0], b0.shortcut_bn(),
                        relu=False, stride=2, padding=0)
-    rows = out.shape[2] - 1  # the next conv's output: 9 -> 8
+    rows = out.shape[2] - 2  # the next conv's output: 9 -> 8
     sc = sc[:, :, :rows] if top else sc[:, :, -rows:]
-    x = _conv_rows(out, b0.conv2, b0.bn2, pad, residual=sc)  # [B, C2, 8, F2]
+    xp = _conv_rows(out, b0.conv2, b0.bn2, pad, residual=sc)  # [B, C2, 8, F2], padded
 
-    out = _conv_rows(x, b1.conv1, b1.bn1, pad)  # 8 -> 7
-    return _conv_rows(out, b1.conv2, b1.bn2, pad,  # 7 -> 6
+    out = _conv_rows(xp, b1.conv1, b1.bn1, pad)  # 8 -> 7
+    x = _interior(xp, pad)
+    return _conv_rows(out, b1.conv2, b1.bn2,  # 7 -> 6
                       residual=x[:, :, :-2] if top else x[:, :, 2:])
 
 

@@ -14,7 +14,10 @@ which the CPU tests and the comparison with the JAX package run.
 
 ``y`` is dense in either memory format, NCHW or channels-last (NHWC: the
 bf16 classify step's, whose cuDNN convs read and write NHWC), and the
-output takes ``y``'s format.  The kernel picks its form from ``y``'s strides
+output takes ``y``'s format.  With ``pad_top`` / ``pad_bottom`` the output
+has that many zero rows above and below the result (along H), written by
+the same launch: the input of a conv that pads in time on one side, such
+as the shared stem's window-edge band convs, with no separate pad pass.  The kernel picks its form from ``y``'s strides
 (:func:`layout`; a tensor dense in both, as one with a single channel is,
 counts as NCHW).  In NHWC a residual whose channel stride is 1 and whose
 other strides are multiples of 8 bf16 (4 float32) elements at a 16-byte
@@ -41,9 +44,11 @@ from laughter_detection_icsi_tpu_torch.ops import nvcc
 
 #: Kernel launches so far (the wrapper adds one per launch, nowhere else):
 #: lets a run show that its main path went through the kernel.  Those of
-#: its NHWC form are counted again in ``launches_nhwc``.
+#: its NHWC form are counted again in ``launches_nhwc``, those that write
+#: zero rows around their output in ``launches_padded``.
 launches = 0
 launches_nhwc = 0
+launches_padded = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The C entry point's flags.
@@ -64,7 +69,7 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.bn_act_launch.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, ll, ll, ll, ll,
-                                  i, i, f, i, i, p]
+                                  i, i, f, i, i, i, i, p]
     lib.bn_act_launch.restype = ctypes.c_int
     return lib
 
@@ -88,11 +93,36 @@ def layout(y: torch.Tensor) -> str:
                      f"{tuple(y.shape)} strides {y.stride()}")
 
 
-def launch_args(y: torch.Tensor, residual: Optional[torch.Tensor]) -> Tuple[int, ...]:
-    """The launch's geometry for ``y`` and its residual: ``(n, c, h, w,
-    rs0, rs1, rs2, rs3, res_mode, wide, nhwc)``, ``rs`` the residual's
-    strides.  ``wide``: ``y`` is 16-byte aligned (the output, a fresh
-    allocation, is too), so the kernel moves 16 bytes a thread."""
+def padded_shape(y: torch.Tensor, pad_rows: Tuple[int, int]) -> Tuple[int, ...]:
+    """The output's shape: ``y``'s [n, c, h, w] with ``pad_rows = (top,
+    bottom)`` zero rows added along H.  A negative pad, or a ``y`` of
+    another rank, raises."""
+    top, bottom = pad_rows
+    if y.ndim != 4 or top < 0 or bottom < 0:
+        raise ValueError(f"bn_act pads a 4-d y by rows >= 0, got y of shape {tuple(y.shape)} "
+                         f"and pad_rows {tuple(pad_rows)}")
+    n, c, h, w = y.shape
+    return (n, c, top + h + bottom, w)
+
+
+def _output(y: torch.Tensor, pad_rows: Tuple[int, int]) -> torch.Tensor:
+    """An empty output for ``y``, dense in ``y``'s memory format."""
+    shape = padded_shape(y, pad_rows)
+    if not any(pad_rows):
+        return torch.empty_like(y)
+    fmt = torch.channels_last if layout(y) == "nhwc" else torch.contiguous_format
+    return torch.empty(shape, dtype=y.dtype, device=y.device, memory_format=fmt)
+
+
+def launch_args(y: torch.Tensor, residual: Optional[torch.Tensor],
+                pad_rows: Tuple[int, int] = (0, 0)) -> Tuple[int, ...]:
+    """The launch's geometry for ``y``, its residual and the output's zero
+    rows: ``(n, c, h, w, rs0, rs1, rs2, rs3, res_mode, wide, nhwc, top,
+    bottom)``, ``rs`` the residual's strides.  ``wide``: ``y`` is 16-byte
+    aligned (the output, a fresh allocation, is too), so the kernel moves
+    16 bytes a thread; it stores the padded output 16 bytes a thread where
+    a row (``w``, or ``w * c`` in NHWC) is a whole number of vectors."""
+    padded_shape(y, pad_rows)
     nhwc = layout(y) == "nhwc"
     vec = 16 // y.element_size()
     wide = y.data_ptr() % 16 == 0
@@ -104,20 +134,22 @@ def launch_args(y: torch.Tensor, residual: Optional[torch.Tensor]) -> Tuple[int,
         elif (nhwc and rs[1] == 1 and y.shape[1] % vec == 0
               and all(s % vec == 0 for s in (rs[0], rs[2], rs[3]))):
             mode = _RES_PIXEL
-    return (*y.shape, *rs, mode, int(wide), int(nhwc))
+    return (*y.shape, *rs, mode, int(wide), int(nhwc), *pad_rows)
 
 
 @torch.library.custom_op("laughter_icsi_torch::bn_act", mutates_args=(), device_types="cuda")
 def _bn_act_launch(
     y: torch.Tensor, bias: Optional[torch.Tensor], weight: Optional[torch.Tensor],
     shift: Optional[torch.Tensor], mean: Optional[torch.Tensor], var: Optional[torch.Tensor],
-    residual: Optional[torch.Tensor], relu: bool, eps: float,
+    residual: Optional[torch.Tensor], relu: bool, eps: float, pad_top: int = 0,
+    pad_bottom: int = 0,
 ) -> torch.Tensor:
     """The op on a CUDA tensor: one launch of the kernel (built on first
     use), counted in ``launches`` (and, in its NHWC form, in
-    ``launches_nhwc``).  ``weight``, ``shift`` (BN's bias), ``mean`` and
-    ``var`` come together or not at all."""
-    global launches, launches_nhwc
+    ``launches_nhwc``; with zero rows, in ``launches_padded``).
+    ``weight``, ``shift`` (BN's bias), ``mean`` and ``var`` come together
+    or not at all."""
+    global launches, launches_nhwc, launches_padded
     if y.dtype not in _DTYPES:
         raise TypeError(f"bn_act takes float32 or bfloat16, got {y.dtype}")
     layout(y)
@@ -129,29 +161,32 @@ def _bn_act_launch(
                     ("var", var)):
         _check(y, name, t, (c,))
     _check(y, "residual", residual, y.shape)
-    out = torch.empty_like(y)  # in y's memory format
+    out = _output(y, (pad_top, pad_bottom))  # in y's memory format
     if y.numel() == 0:
-        return out
-    if y.numel() >= 2**31:
-        raise ValueError(f"bn_act takes fewer than 2**31 elements, got {y.numel()}")
+        return out.zero_()
+    if out.numel() >= 2**31:
+        raise ValueError(f"bn_act takes fewer than 2**31 elements, got {out.numel()}")
     flags = ((_BIAS if bias is not None else 0) | (_NORM if var is not None else 0)
              | (_RESIDUAL if residual is not None else 0) | (_RELU if relu else 0))
-    n, c, h, w, *rs, mode, wide, nhwc = launch_args(y, residual)
+    n, c, h, w, *rs, mode, wide, nhwc, top, bottom = launch_args(y, residual,
+                                                                 (pad_top, pad_bottom))
     ptr = lambda t: t.data_ptr() if t is not None else None
     with torch.cuda.device(y.device):
         err = _library().bn_act_launch(
             _DTYPES[y.dtype], y.data_ptr(), out.data_ptr(), ptr(bias), ptr(weight),
             ptr(shift), ptr(mean), ptr(var), ptr(residual), n, c, h, w, *rs, mode, flags, eps,
-            wide, nhwc, torch.cuda.current_stream().cuda_stream,
+            wide, nhwc, top, bottom, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"bn_act kernel launch failed (cudaError {err})")
     launches += 1
     launches_nhwc += nhwc
+    launches_padded += top + bottom > 0
     return out
 
 
 @_bn_act_launch.register_fake
-def _bn_act_fake(y, bias, weight, shift, mean, var, residual, relu, eps) -> torch.Tensor:
-    """``y``'s shape, dtype and memory format."""
-    return torch.empty_like(y)
+def _bn_act_fake(y, bias, weight, shift, mean, var, residual, relu, eps, pad_top=0,
+                 pad_bottom=0) -> torch.Tensor:
+    """``y``'s shape with the zero rows, dtype and memory format."""
+    return _output(y, (pad_top, pad_bottom))

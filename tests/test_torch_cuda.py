@@ -438,15 +438,17 @@ def _bn(c, gen, dtype, card):
     return bn.to(card, dtype).eval()
 
 
-def _composed(x, conv, bn, train=False, relu=True, residual=None, **kw):
+def _composed(x, conv, bn, train=False, relu=True, residual=None, pad_rows=(0, 0), **kw):
     """``layers.conv_bn_act``'s plain version, on whatever device ``x``
-    is: the chain of eager ops the kernel replaces."""
+    is: the chain of eager ops the kernel replaces, and ``F.pad`` for the
+    zero rows."""
     from laughter_detection_icsi_tpu_torch.models import layers as L
 
     y = L.batch_norm(L.conv2d(x, conv, **kw), bn, train)
     if residual is not None:
         y = y + residual
-    return torch.relu(y) if relu else y
+    y = torch.relu(y) if relu else y
+    return torch.nn.functional.pad(y, (0, 0, *pad_rows)) if any(pad_rows) else y
 
 
 def _bits(t):
@@ -694,12 +696,20 @@ def test_the_pipelines_classify_step_takes_the_epilogues_form_of_its_precision(c
     with torch.inference_mode():
         step(pipe.model)  # cuDNN's first calls
         before, before_nhwc = bn_act_cuda.launches, bn_act_cuda.launches_nhwc
+        before_padded = bn_act_cuda.launches_padded
         activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities, record_shapes=True) as prof:
             got = step(pipe.model)
             torch.cuda.synchronize()
         assert bn_act_cuda.launches - before == 40
         assert bn_act_cuda.launches_nhwc - before_nhwc == (40 if bf16 else 0)
+        # The band convs whose result the next band conv reads: 4 + 3 at
+        # each window edge.
+        assert bn_act_cuda.launches_padded - before_padded == 14
+        # The pads left: the bucket's features (2-d), each edge's 1-channel
+        # feature rows and the top edge's stage-2 entry.
+        pads = [e.input_shapes[0] for e in prof.events() if e.name == "aten::constant_pad_nd"]
+        assert sorted(s[1] if len(s) == 4 else 0 for s in pads) == [0, 1, 1, 64], pads
         track = shared_stem.stem_track(pipe.model, feats.to(inference.compute_dtype(precision)))
         assert (track.stride(1) == 1) == bf16
         if not bf16:
@@ -722,6 +732,87 @@ def test_the_pipelines_classify_step_takes_the_epilogues_form_of_its_precision(c
     assert layout and {e.input_shapes[0][1] for e in layout} == {1}, [
         (e.name, e.input_shapes, [k.name[:60] for k in e.kernels]) for e in layout]
     assert not [k for k in names if "nhwcToNchw" in k]
+
+
+#: The padded epilogue's shapes: the sweep's stage-1 and stage-2 bands
+#: (rows a 16-byte multiple in NHWC; in NCHW float32 the stage-1 band's
+#: too, bf16's and stage 2's not: scalar stores) and 5 channels (scalar
+#: stores in either form).
+PADDED_SHAPES = {"band": (6144, 64, 7, 44), "band2": (6144, 32, 6, 22), "5 channels": (96, 5, 7, 9)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["nhwc", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("where", list(PADDED_SHAPES))
+def test_bn_act_padded_equals_f_pad_of_the_unpadded_op(card, where, dtype, fmt):
+    """The op with a zero row above or below its result: one launch,
+    counted as padded; bit for bit ``F.pad`` of the unpadded op on the same
+    tensors, dense in ``y``'s format, with no residual and with one that is
+    an H-crop of a padded band's interior (the band convs' residual); its
+    pad rows +0.0 though the allocator hands it a buffer just filled with
+    NaN."""
+    from laughter_detection_icsi_tpu_torch.models import layers as L
+    from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda
+
+    n, c, h, w = PADDED_SHAPES[where]
+    fmt_of = torch.channels_last if fmt == "nhwc" else torch.contiguous_format
+    gen = torch.Generator().manual_seed(11)
+    rand = lambda *s: torch.randn(s, generator=gen).to(card, dtype).contiguous(
+        memory_format=fmt_of)
+    y, bias, bn = rand(n, c, h, w), torch.randn(c, generator=gen).to(card, dtype), _bn(
+        c, gen, dtype, card)
+    band = rand(n, c, h + 3, w)  # a zero row and h + 2 rows
+    terms = (bias, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    op = torch.ops.laughter_icsi_torch.bn_act
+    for pad in ((1, 0), (0, 1)):
+        crop = band[:, :, 1:1 + h] if pad[0] else band[:, :, 2:2 + h]
+        for res in (None, crop):
+            with torch.inference_mode():
+                want = torch.nn.functional.pad(op(y, *terms, res, True, L.BN_EPS), (0, 0, *pad))
+                stale = torch.full((n, c, h + 1, w), float("nan"), dtype=dtype, device=card)
+                ptr = stale.data_ptr()
+                del stale
+                before = bn_act_cuda.launches_padded
+                got = op(y, *terms, res, True, L.BN_EPS, *pad)
+            assert got.data_ptr() == ptr  # the NaN buffer, reused
+            assert bn_act_cuda.launches_padded - before == 1
+            assert got.shape == (n, c, h + 1, w) and got.is_contiguous(memory_format=fmt_of)
+            assert torch.equal(_bits(got), _bits(want)), (pad, res is None)
+            assert not _bits(got)[:, :, 0 if pad[0] else -1].any()
+
+
+@pytest.mark.cuda
+def test_classify_bucket_bf16_equals_the_f_pad_route_bit_for_bit(card):
+    """The pipeline's bf16 classify step (NHWC, two chunks a bucket), its
+    band convs writing their zero rows, against the route that pads with
+    ``F.pad``: the unpadded epilogue then ``F.pad``, and the composed
+    chain then ``F.pad``: the same probabilities, bit for bit."""
+    from laughter_detection_icsi_tpu_torch.models import layers as L
+    from laughter_detection_icsi_tpu_torch.ops import bn_act_cuda
+
+    model = zoo.build("ResNetBigger", linear_layer_size=48)
+    settings = inference.InferenceSettings(chunk=128, bucket_frames=256, precision="bfloat16")
+    pipe = inference.LaughterPipeline(model, settings=settings, device=card)
+    feats = torch.from_numpy(_wave((256 + 99, 44), seed=17) * 10).to(card)
+    step = lambda: inference.classify_bucket(pipe.model, feats, 300, settings,
+                                             use_shared_stem=True)
+    real = L.conv_bn_act
+
+    def f_pad_route(*a, pad_rows=(0, 0), **k):
+        return torch.nn.functional.pad(real(*a, **k), (0, 0, *pad_rows))
+
+    with torch.inference_mode():
+        before = bn_act_cuda.launches_padded
+        got = step()
+        assert bn_act_cuda.launches_padded - before == 2 * 14
+        routes = {}
+        for name, fn in (("epilogue, F.pad", f_pad_route), ("composed, F.pad", _composed)):
+            with pytest.MonkeyPatch.context() as m:
+                m.setattr(L, "conv_bn_act", fn)
+                routes[name] = step()
+    for name, want in routes.items():
+        assert torch.equal(got, want), name
 
 
 # --------------------------------------------------------------------------- #
